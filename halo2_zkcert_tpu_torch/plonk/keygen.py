@@ -1,0 +1,120 @@
+"""Verifying and proving keys.
+
+Counterpart of halo2_zkcert_tpu/plonk/keygen.py for the key DATA and the
+vk transcript hash.  Running keygen itself is not ported yet: a proving key
+comes from the JAX package's saved pk through `from_reference_pk`.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..ops import field
+from ..ops.field import FR
+from ..utils import refcrypto as rc
+from .cs import ConstraintSystem
+from .domain import Domain
+
+
+@dataclass
+class VerifyingKey:
+    k: int
+    cs: ConstraintSystem
+    fixed_commitments: list          # [(x, y)]
+    permutation_commitments: list    # [(x, y)] sigma commitments
+    num_instance: list
+    accumulator_indices: list | None = None
+
+    @property
+    def n(self) -> int:
+        return 1 << self.k
+
+    def domain(self, device="cpu") -> Domain:
+        return Domain(self.k, self.cs.quotient_degree, str(device))
+
+    def transcript_repr(self) -> int:
+        """vk hash absorbed at the start of every transcript."""
+        h = rc.blake2b(self.digest_bytes(), 64, persona=b"Halo2-Verify-Key")
+        return rc.fr_from_u512_le(h[:32], h[32:])
+
+    def digest_bytes(self) -> bytes:
+        parts = [f"vk:v1;k={self.k};ninst={self.num_instance}".encode(),
+                 self.cs.digest_bytes()]
+        for (x, y) in self.fixed_commitments + self.permutation_commitments:
+            parts.append(rc.fe_to_bytes_le(x) + rc.fe_to_bytes_le(y))
+        return b"|".join(parts)
+
+
+@dataclass
+class ProvingKey:
+    vk: VerifyingKey
+    fixed_lagrange: torch.Tensor     # (num_fixed, n, 8)
+    fixed_coeff: torch.Tensor        # (num_fixed, n, 8)
+    sigma_lagrange: torch.Tensor     # (m, n, 8)
+    sigma_coeff: torch.Tensor        # (m, n, 8)
+
+    @property
+    def device(self) -> torch.device:
+        return self.fixed_lagrange.device
+
+    def domain(self) -> Domain:
+        return self.vk.domain(self.device)
+
+
+def vk_to_dict(vk: VerifyingKey) -> dict:
+    return {
+        "k": vk.k,
+        "num_instance": vk.num_instance,
+        "accumulator_indices": vk.accumulator_indices,
+        "fixed_commitments": [[x, y] for (x, y) in vk.fixed_commitments],
+        "permutation_commitments": [[x, y] for (x, y)
+                                    in vk.permutation_commitments],
+        "cs": vk.cs.to_dict(),
+    }
+
+
+def vk_from_dict(d: dict) -> VerifyingKey:
+    acc = d.get("accumulator_indices")
+    return VerifyingKey(
+        k=d["k"], cs=ConstraintSystem.from_dict(d["cs"]),
+        fixed_commitments=[(int(x), int(y)) for x, y in d["fixed_commitments"]],
+        permutation_commitments=[(int(x), int(y)) for x, y
+                                 in d["permutation_commitments"]],
+        num_instance=list(d["num_instance"]),
+        accumulator_indices=[(int(c), int(r)) for c, r in acc] if acc else None,
+    )
+
+
+def _columns(arr, device) -> torch.Tensor:
+    """(m, n, 33) resident limbs (numpy or tensor) -> (m, n, 8) canonical,
+    converted on `device` one column at a time."""
+    arr = np.asarray(arr)
+    out = torch.empty(arr.shape[:2] + (8,), dtype=torch.int32, device=device)
+    for i in range(arr.shape[0]):
+        col = torch.from_numpy(np.ascontiguousarray(arr[i], dtype=np.int32))
+        out[i] = field.from_resident(FR, col.to(device))
+    return out
+
+
+def from_reference_pk(arrays, vk_dict: dict, device="cuda",
+                      cs: ConstraintSystem | None = None) -> ProvingKey:
+    """Carry the JAX package's proving key across.
+
+    `arrays` maps fixed_lagrange, fixed_coeff, sigma_lagrange, sigma_coeff
+    to (m, n, 33) int32 resident limbs (the JAX pk's device arrays, or the
+    arrays of a saved `.pk.npz`); `vk_dict` is its vk sidecar.  `cs`, when
+    given, replaces the decoded constraint system (a live circuit's, whose
+    digest must match)."""
+    vk = vk_from_dict(vk_dict)
+    if cs is not None:
+        assert cs.digest_bytes() == vk.cs.digest_bytes(), "cs digest mismatch"
+        vk.cs = cs
+    return ProvingKey(
+        vk=vk,
+        fixed_lagrange=_columns(arrays["fixed_lagrange"], device),
+        fixed_coeff=_columns(arrays["fixed_coeff"], device),
+        sigma_lagrange=_columns(arrays["sigma_lagrange"], device),
+        sigma_coeff=_columns(arrays["sigma_coeff"], device),
+    )
