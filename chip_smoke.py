@@ -7,12 +7,19 @@ Phases, each printing its own line:
      parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path (exact equality), and time both;
-  3. build the k=17 SRS on the card from the default tau, and commit the
-     committed RSA proving key's 12 fixed and 3 sigma columns: they must
-     equal the commitments of build/rsa_1.pk.vk;
-  4. prove the RSA-2048 k=17 link as the port's bench does (a warm-up
-     proof, then a timed one), verify it, and reject a tampered copy;
-  5. the kernels' launch counts on the timed proof: each must be > 0.
+  3. build the k=17 SRS on the card from the default tau and the fixed-base
+     window tables of both bases; commit the committed RSA proving key's 12
+     fixed and 3 sigma columns through the variable-base and through the
+     fixed-base MSM: both must equal the commitments of build/rsa_1.pk.vk;
+     then a fixed-base MSM over 5001 points (a pair count that is not whole
+     scan rows, the path of the mixed-add kernel) against the variable-base
+     MSM of the same points and scalars;
+  4. prove the RSA-2048 k=17 link as the port's bench does, on the fixed
+     base (the default: a warm-up proof, then a timed one) and once with the
+     variable base forced; each proof must verify, a tampered copy must be
+     rejected, and the bytes must equal build/rsa_1.proof;
+  5. the kernels' launch counts on each driven path: every kernel must have
+     been launched on one of them.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -182,6 +189,50 @@ def check_points(device, n: int, rng) -> list:
     return recs
 
 
+def check_mixed(device, n: int, rows: int, rng) -> list:
+    """K5 at n points and K6 at `rows` rows of SCAN_C points (one full
+    column's pairs), table-like affine operands."""
+    from halo2_zkcert_tpu_torch.ops import curve, msm_fb
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    G = rc.g1_from_affine(rc.G1_GEN)
+    aff = curve.points_to_device(
+        [rc.g1_to_affine(rc.g1_mul(G, int(s)))
+         for s in rng.integers(1, 1 << 62, size=64)], device)
+
+    def pick(*shape):
+        return aff[torch.from_numpy(rng.integers(0, 64, size=shape))
+                   .to(device)].contiguous()
+
+    P, Q = sample_points(device, n, rng), pick(n)
+    P[1:4] = curve.from_affine(Q[1:4])            # P + P
+    P[4:8] = curve.neg(curve.from_affine(Q[4:8]))  # (-Q) + Q
+    C = msm_fb.SCAN_C
+    xy = pick(rows, C)
+    xy[1] = xy[1, :1]                             # a row that keeps doubling
+    src = "halo2_zkcert_tpu_torch/csrc/"
+    cases = (
+        ("point_add_mixed", lambda: curve.add_mixed(P, Q),
+         lambda: curve.add_mixed_plain(P, Q), src + "point_ops.cu",
+         "halo2_zkcert_tpu/ops/pallas_limbs.py:393", n, 8 * 32),
+        ("scan_madd", lambda: msm_fb.scan_madd(xy),
+         lambda: msm_fb.scan_madd_plain(xy), src + "scan_madd.cu",
+         "halo2_zkcert_tpu/ops/pallas_limbs.py:533", rows * C, 5 * 32),
+    )
+    recs = []
+    for name, kern, plain, source, replaces, pairs, bytes_per in cases:
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        ok = torch.equal(got, want)
+        log(f"[kernels] {name} pairs={pairs}: {'exact' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        recs.append(_record(name, source, replaces, err, cuda_ms(kern, 10),
+                            cuda_ms(plain, 1, 1), bytes_per * pairs,
+                            11 * OPS_PER_MUL * pairs))
+    return recs
+
+
 def check_quotient(device, vk_path: str, rng) -> dict:
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
@@ -220,8 +271,27 @@ def check_quotient(device, vk_path: str, rng) -> dict:
 # phases 3 and 4: SRS + key commitments, then the proof
 # ---------------------------------------------------------------------------
 
+class forced_msm:
+    """Force the commitment MSM for the block: "1" fixed base, "0" variable
+    base (the H2T_FB_MSM knob of plonk/kzg.py)."""
+
+    def __init__(self, mode: str):
+        self.mode = mode
+
+    def __enter__(self):
+        self.saved = os.environ.get("H2T_FB_MSM")
+        os.environ["H2T_FB_MSM"] = self.mode
+
+    def __exit__(self, *exc):
+        if self.saved is None:
+            del os.environ["H2T_FB_MSM"]
+        else:
+            os.environ["H2T_FB_MSM"] = self.saved
+
+
 def check_srs(device, params_dir: str):
     from halo2_zkcert_tpu_torch.bench import load_rsa_link
+    from halo2_zkcert_tpu_torch.ops import kernels
     from halo2_zkcert_tpu_torch.plonk import kzg
     t0 = time.perf_counter()
     params = kzg.setup(17, device=device)
@@ -229,35 +299,82 @@ def check_srs(device, params_dir: str):
     t_srs = time.perf_counter() - t0
     os.makedirs(params_dir, exist_ok=True)
     params.write(os.path.join(params_dir, "kzg_bn254_17.srs"))
-    circuit, pk, sig, digest = load_rsa_link(device)
+    log(f"[srs] k=17 built on the card in {t_srs:.3f} s")
+    kernels.reset_launches()
     t0 = time.perf_counter()
-    fixed = kzg.commit_many_lagrange(params, pk.fixed_lagrange)
-    sigma = kzg.commit_many_lagrange(params, pk.sigma_lagrange)
-    t_commit = time.perf_counter() - t0
-    ok_f = fixed == pk.vk.fixed_commitments
-    ok_s = sigma == pk.vk.permutation_commitments
-    log(f"[srs] k=17 built on the card in {t_srs:.3f} s; {len(fixed)} fixed "
-        f"+ {len(sigma)} sigma commitments in {t_commit:.3f} s: "
-        f"{'equal to' if ok_f and ok_s else 'DIFFERENT FROM'} build/rsa_1.pk.vk")
-    if not (ok_f and ok_s):
-        raise AssertionError("key commitments differ from the reference vk")
-    return params, circuit, pk, sig, digest
+    for lagrange in (True, False):
+        params.fixed_base(lagrange)
+    torch.cuda.synchronize()
+    tab = params.fixed_base(True).table_flat
+    log(f"[tables] fixed-base window tables of both bases built in "
+        f"{time.perf_counter() - t0:.3f} s ({tab.shape[0]} points, "
+        f"{tab.numel() * 4 / 1e6:.1f} MB a basis)")
+    launches = {"table_build": dict(kernels.launches)}
+    circuit, pk, sig, digest = load_rsa_link(device)
+    for label, mode in (("variable base", "0"), ("fixed base", "1")):
+        with forced_msm(mode):
+            t0 = time.perf_counter()
+            fixed = kzg.commit_many_lagrange(params, pk.fixed_lagrange)
+            sigma = kzg.commit_many_lagrange(params, pk.sigma_lagrange)
+            t_commit = time.perf_counter() - t0
+        ok = (fixed == pk.vk.fixed_commitments
+              and sigma == pk.vk.permutation_commitments)
+        log(f"[commit] {label}: {len(fixed)} fixed + {len(sigma)} sigma "
+            f"commitments in {t_commit:.3f} s: "
+            f"{'equal to' if ok else 'DIFFERENT FROM'} build/rsa_1.pk.vk")
+        if not ok:
+            raise AssertionError(f"{label}: key commitments differ from the "
+                                 f"reference vk")
+    launches["ragged_msm"] = check_ragged(device, params, 5001)
+    return params, circuit, pk, sig, digest, launches
 
 
-def prove(device, params, circuit, pk, sig, digest) -> dict:
+def check_ragged(device, params, n: int) -> dict:
+    """Fixed-base MSM over the first n points of g, n chosen so that the
+    pair count is not whole scan rows: equal to the variable-base MSM."""
+    from halo2_zkcert_tpu_torch.ops import curve, kernels, msm, msm_fb
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    base = params.g[:n].contiguous()
+    rng = np.random.default_rng(n)
+    cols = random_canonical(rng, 2 * n, device, FR.modulus).reshape(2, n, 8)
+    fb = msm_fb.FixedBaseMsm(base)
+    assert fb.nwin * n % msm_fb.SCAN_C, "pair count must be ragged"
+    kernels.reset_launches()
+    got = curve.to_affine(fb.msm_many(cols))
+    launches = dict(kernels.launches)
+    want = curve.to_affine(msm.msm_many(base, cols))
+    ok = torch.equal(got, want)
+    log(f"[ragged] fixed-base MSM over {n} points ({fb.nwin * n} pairs, "
+        f"{launches.get('point_add_mixed', 0)} point_add_mixed launches): "
+        f"{'equal to' if ok else 'DIFFERENT FROM'} the variable-base MSM")
+    if not ok:
+        raise AssertionError("ragged fixed-base MSM differs")
+    return launches
+
+
+def prove(device, label, params, circuit, pk, sig, digest, warmup) -> dict:
+    """Prove the link on the commitment path in force, verify, reject a
+    tampered copy, compare with build/rsa_1.proof; the launch counts of the
+    last proof."""
     from halo2_zkcert_tpu_torch.bench import prove_rsa
     from halo2_zkcert_tpu_torch.ops import kernels
     from halo2_zkcert_tpu_torch.plonk import prover, verify_proof
     from halo2_zkcert_tpu_torch.sdk import Snark
     from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
-    proof, instances, dt0 = prove_rsa(params, circuit, pk, sig, digest, device)
-    log(f"[prove] warm-up proof {dt0:.3f} s, stages "
-        f"{json.dumps(prover.LAST_STAGE_TIMES)}")
-    kernels.reset_launches()
-    proof, instances, dt = prove_rsa(params, circuit, pk, sig, digest, device)
-    launches = dict(kernels.launches)
-    log(f"[prove] timed proof {dt:.3f} s, {len(proof)} bytes, stages "
-        f"{json.dumps(prover.LAST_STAGE_TIMES)}")
+    ref = Snark.read(os.path.join(REPO, "build", "rsa_1.proof"))
+    runs = (["warm-up"] if warmup else []) + ["timed"]
+    for what in runs:
+        kernels.reset_launches()
+        proof, instances, dt = prove_rsa(params, circuit, pk, sig, digest,
+                                         device)
+        launches = dict(kernels.launches)
+        same = ref.proof == proof and ref.instances == instances
+        log(f"[prove] {label}: {what} proof {dt:.3f} s, {len(proof)} bytes, "
+            f"{'equal to' if same else 'DIFFERENT FROM'} build/rsa_1.proof, "
+            f"stages {json.dumps(prover.LAST_STAGE_TIMES)}")
+        if not same:
+            raise AssertionError(f"{label}: proof bytes or instances differ "
+                                 f"from build/rsa_1.proof")
     t0 = time.perf_counter()
     ok = verify_proof(params, pk.vk, instances, proof, PoseidonTranscript)
     t_ver = time.perf_counter() - t0
@@ -265,13 +382,10 @@ def prove(device, params, circuit, pk, sig, digest) -> dict:
     bad[len(bad) // 2] ^= 1
     rejected = not verify_proof(params, pk.vk, instances, bytes(bad),
                                 PoseidonTranscript)
-    log(f"[verify] accepts the proof: {ok} ({t_ver:.3f} s); rejects a "
-        f"flipped byte: {rejected}")
+    log(f"[verify] {label}: accepts the proof: {ok} ({t_ver:.3f} s); "
+        f"rejects a flipped byte: {rejected}")
     if not (ok and rejected):
-        raise AssertionError("verifier check failed")
-    ref = Snark.read(os.path.join(REPO, "build", "rsa_1.proof"))
-    log(f"[prove] bytes equal to build/rsa_1.proof (information only): "
-        f"{ref.proof == proof}; instances equal: {ref.instances == instances}")
+        raise AssertionError(f"{label}: verifier check failed")
     return launches
 
 
@@ -293,6 +407,7 @@ def main() -> int:
 
     recs = check_field(device, 1 << 19, rng)
     recs += check_points(device, 1 << 17, rng)
+    recs += check_mixed(device, 1 << 17, 1 << 15, rng)
     recs.append(check_quotient(
         device, os.path.join(REPO, "build", "rsa_1.pk.vk"), rng))
     for r in recs:
@@ -302,14 +417,28 @@ def main() -> int:
 
     params_dir = os.environ.get("PARAMS_DIR",
                                 os.path.join(REPO, "params"))
-    params, circuit, pk, sig, digest = check_srs(device, params_dir)
-    launches = prove(device, params, circuit, pk, sig, digest)
-    log(f"[launches] timed proof: {json.dumps(launches, sort_keys=True)}")
+    params, circuit, pk, sig, digest, launches = check_srs(device, params_dir)
+    link = (params, circuit, pk, sig, digest)
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    assert kzg.commit_path(params) == "fixed_base", "default commit path"
+    launches["fixed_base_proof"] = prove(device, "fixed base", *link,
+                                         warmup=True)
+    with forced_msm("0"):
+        launches["variable_base_proof"] = prove(device, "variable base",
+                                                *link, warmup=False)
+    paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm")
+    for path in paths + ("table_build",):
+        log(f"[launches] {path}: "
+            f"{json.dumps(launches[path], sort_keys=True)}")
     for r in recs:
-        r["launches"] = launches.get(r["name"], 0)
+        r["launches_by_path"] = {p: launches[p].get(r["name"], 0)
+                                 for p in paths}
+        r["launches_path"] = next(
+            (p for p in paths if r["launches_by_path"][p] > 0), None)
+        r["launches"] = r["launches_by_path"].get(r["launches_path"], 0)
     missing = [r["name"] for r in recs if r["launches"] <= 0]
     if missing:
-        raise AssertionError(f"kernels not launched on the proof: {missing}")
+        raise AssertionError(f"kernels launched on no driven path: {missing}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -232,6 +232,28 @@ H2T_HD Pt point_double_mont(const Pt& P) {
   return R;
 }
 
+// Algorithm 8: complete mixed addition P + (x2, y2, 1), 11M.  Complete in P
+// (identity, doubling and inverse included); (x2, y2) must be a curve point,
+// never the (0, 0) that stands for the identity in affine tables.
+H2T_HD Pt point_madd_mont(const Pt& P, const Fe& x2, const Fe& y2) {
+  Fe t0 = mont_mul<FQ>(P.x, x2);
+  Fe t1 = mont_mul<FQ>(P.y, y2);
+  Fe t3 = mont_mul<FQ>(fadd<FQ>(P.x, P.y), fadd<FQ>(x2, y2));
+  t3 = fsub<FQ>(t3, fadd<FQ>(t0, t1));               // X1 Y2 + X2 Y1
+  Fe t4 = fadd<FQ>(mont_mul<FQ>(x2, P.z), P.x);      // X1 Z2 + X2 Z1
+  Fe t5 = fadd<FQ>(mont_mul<FQ>(y2, P.z), P.y);      // Y1 Z2 + Y2 Z1
+  t0 = fq_times3(t0);
+  Fe t2 = fq_times9(P.z);                            // b3 Z1 Z2
+  Fe z3 = fadd<FQ>(t1, t2);
+  t1 = fsub<FQ>(t1, t2);
+  Fe y3 = fq_times9(t4);
+  Pt R;
+  R.x = fsub<FQ>(mont_mul<FQ>(t3, t1), mont_mul<FQ>(t5, y3));
+  R.y = fadd<FQ>(mont_mul<FQ>(t1, z3), mont_mul<FQ>(y3, t0));
+  R.z = fadd<FQ>(mont_mul<FQ>(z3, t5), mont_mul<FQ>(t0, t3));
+  return R;
+}
+
 H2T_HD Pt pt_to_mont(const Pt& P) {
   Pt R;
   R.x = to_mont<FQ>(P.x);
@@ -254,6 +276,11 @@ H2T_HD Pt point_add_canon(const Pt& P, const Pt& Q) {
 
 H2T_HD Pt point_double_canon(const Pt& P) {
   return pt_from_mont(point_double_mont(pt_to_mont(P)));
+}
+
+H2T_HD Pt point_madd_canon(const Pt& P, const Fe& x2, const Fe& y2) {
+  return pt_from_mont(
+      point_madd_mont(pt_to_mont(P), to_mont<FQ>(x2), to_mont<FQ>(y2)));
 }
 
 // ---------------------------------------------------------------------------
@@ -305,6 +332,36 @@ H2T_HD Fe tape_eval_row(long long row, long long n_rows, const uint32_t* leaves,
     slots[dst] = v;
   }
   return from_mont<FR>(slots[out_slot]);
+}
+
+// ---------------------------------------------------------------------------
+// One row of the mixed-add prefix scan: C canonical affine points (x, y) at
+// `src` (16 words each) -> C canonical projective inclusive prefixes at
+// `dst` (24 words each).  Prefix 0 is the point itself with Z = 1; the
+// running sum stays in Montgomery form across all C - 1 mixed additions.
+// ---------------------------------------------------------------------------
+
+H2T_HD void scan_madd_row(const uint32_t* src, uint32_t* dst, int C) {
+  Fe one = fe_zero();
+  one.w[0] = 1;
+  Fe x = load_fe(src), y = load_fe(src + 8);
+  store_fe(dst, x);
+  store_fe(dst + 8, y);
+  store_fe(dst + 16, one);
+  Pt acc;
+  acc.x = to_mont<FQ>(x);
+  acc.y = to_mont<FQ>(y);
+  acc.z = to_mont<FQ>(one);
+#pragma unroll 1
+  for (int j = 1; j < C; ++j) {
+    x = to_mont<FQ>(load_fe(src + 16 * j));
+    y = to_mont<FQ>(load_fe(src + 16 * j + 8));
+    acc = point_madd_mont(acc, x, y);
+    Pt out = pt_from_mont(acc);
+    store_fe(dst + 24 * j, out.x);
+    store_fe(dst + 24 * j + 8, out.y);
+    store_fe(dst + 24 * j + 16, out.z);
+  }
 }
 
 }  // namespace bn254

@@ -48,6 +48,19 @@ extern "C" void hc_point_double(const uint32_t* P, uint32_t* out,
     stp(out + 24 * i, point_double_canon(ldp(P + 24 * i)));
 }
 
+extern "C" void hc_point_add_mixed(const uint32_t* P, const uint32_t* Q,
+                                   uint32_t* out, long long n) {
+  for (long long i = 0; i < n; ++i)
+    stp(out + 24 * i, point_madd_canon(ldp(P + 24 * i), load_fe(Q + 16 * i),
+                                       load_fe(Q + 16 * i + 8)));
+}
+
+extern "C" void hc_scan_madd(const uint32_t* xy, uint32_t* out, long long R,
+                             int C) {
+  for (long long r = 0; r < R; ++r)
+    scan_madd_row(xy + r * C * 16, out + r * C * 24, C);
+}
+
 extern "C" void hc_quotient_forest(const uint32_t* leaves, long long n_rows,
                                    const uint32_t* consts, const int32_t* tape,
                                    int T, int out_slot, uint32_t* out) {

@@ -1,10 +1,13 @@
-// K2 point_add and K3 point_double: batched complete G1 group law.
+// K2 point_add, K3 point_double and K5 point_add_mixed: batched complete G1
+// group law.
 //
 // Replace the TPU kernels fused_point_add (RCB16 Alg. 7,
-// halo2_zkcert_tpu/ops/pallas_limbs.py:372) and fused_point_double (RCB16
-// Alg. 9, pallas_limbs.py:451).  One thread per point; the 12 (add) or 8
-// (double) Fq products and every intermediate stay in registers, in
-// Montgomery form, between one conversion in and one conversion out.
+// halo2_zkcert_tpu/ops/pallas_limbs.py:372), fused_point_double (RCB16
+// Alg. 9, pallas_limbs.py:451) and fused_point_add_mixed (RCB16 Alg. 8,
+// pallas_limbs.py:393: projective + affine, Z2 = 1).  One thread per point;
+// the 12 (add), 8 (double) or 11 (mixed add) Fq products and every
+// intermediate stay in registers, in Montgomery form, between one conversion
+// in and one conversion out.
 //
 // Bound on the H100: integer operations.  An add is about 21 CIOS products
 // (12 of the formula plus 9 conversions) of about 200 32-bit multiply-adds
@@ -28,6 +31,17 @@ __device__ __forceinline__ Pt ldp(const uint32_t* p) {
     w[c][4] = hi.x; w[c][5] = hi.y; w[c][6] = hi.z; w[c][7] = hi.w;
   }
   return r;
+}
+
+__device__ __forceinline__ void lda(const uint32_t* p, Fe& x, Fe& y) {
+  const uint4* q = reinterpret_cast<const uint4*>(p);
+  uint32_t* w[2] = {x.w, y.w};
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    uint4 lo = q[2 * c], hi = q[2 * c + 1];
+    w[c][0] = lo.x; w[c][1] = lo.y; w[c][2] = lo.z; w[c][3] = lo.w;
+    w[c][4] = hi.x; w[c][5] = hi.y; w[c][6] = hi.z; w[c][7] = hi.w;
+  }
 }
 
 __device__ __forceinline__ void stp(uint32_t* p, const Pt& v) {
@@ -55,6 +69,17 @@ __global__ void k_point_double(const uint32_t* __restrict__ P,
   stp(out + i * 24, point_double_canon(ldp(P + i * 24)));
 }
 
+// P: (n, 3, 8) projective, Q: (n, 2, 8) affine and never the identity.
+__global__ void k_point_add_mixed(const uint32_t* __restrict__ P,
+                                  const uint32_t* __restrict__ Q,
+                                  uint32_t* __restrict__ out, long long n) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Fe x2, y2;
+  lda(Q + i * 16, x2, y2);
+  stp(out + i * 24, point_madd_canon(ldp(P + i * 24), x2, y2));
+}
+
 extern "C" int h2t_point_add(const void* P, const void* Q, void* out,
                              long long n, void* stream) {
   if (n <= 0) return 0;
@@ -72,5 +97,15 @@ extern "C" int h2t_point_double(const void* P, void* out, long long n,
   long long blocks = (n + threads - 1) / threads;
   k_point_double<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)P, (uint32_t*)out, n);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h2t_point_add_mixed(const void* P, const void* Q, void* out,
+                                   long long n, void* stream) {
+  if (n <= 0) return 0;
+  const int threads = 128;
+  long long blocks = (n + threads - 1) / threads;
+  k_point_add_mixed<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)P, (const uint32_t*)Q, (uint32_t*)out, n);
   return (int)cudaGetLastError();
 }

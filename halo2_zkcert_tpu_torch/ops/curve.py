@@ -1,14 +1,16 @@
-"""BN254 G1 on tensors, and kernels K2 (point_add) and K3 (point_double).
+"""BN254 G1 on tensors, and kernels K2 (point_add), K3 (point_double) and
+K5 (point_add_mixed).
 
 Points are homogeneous projective (X, Y, Z) stored as one int32 tensor of
 shape (..., 3, 8): three canonical Fq elements; the identity is (0, 1, 0).
 Affine points are (..., 2, 8) with (0, 0) standing for the identity.  The
 group law is the complete Renes-Costello-Batina formulas for a = 0 (eprint
-2015/1060, Algorithms 7 and 9, b3 = 9), with no case analysis.
+2015/1060, Algorithms 7, 8 and 9, b3 = 9), with no case analysis.
 
-`add` and `double` wrap the kernels (csrc/point_ops.cu, replacing the TPU's
-fused_point_add and fused_point_double): a CUDA tensor launches the kernel,
-a CPU tensor runs `add_plain` / `double_plain`, the same formulas over the
+`add`, `double` and `add_mixed` wrap the kernels (csrc/point_ops.cu,
+replacing the TPU's fused_point_add, fused_point_double and
+fused_point_add_mixed): a CUDA tensor launches the kernel, a CPU tensor runs
+`add_plain` / `double_plain` / `add_mixed_plain`, the same formulas over the
 plain field arithmetic of ops/field.py.
 """
 from __future__ import annotations
@@ -78,6 +80,33 @@ def add_plain(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     return torch.stack((X3, Y3, Z3), dim=-2)
 
 
+def add_mixed_plain(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """RCB16 Algorithm 8 (complete in P, a = 0): P (..., 3, 8) projective
+    plus Q (..., 2, 8) affine with Z2 = 1, never the identity; 11 products.
+    The same projective triple as `add_plain(P, (x2, y2, 1))`."""
+    lead = torch.broadcast_shapes(P.shape[:-2], Q.shape[:-2])
+    X1, Y1, Z1 = P.expand(lead + (3, 8)).unbind(-2)
+    X2, Y2 = Q.expand(lead + (2, 8)).unbind(-2)
+    s = _fq("add", torch.stack((X1, X2)), torch.stack((Y1, Y2)))
+    m = _fq("mul", torch.stack((X1, Y1, s[0], X2, Y2)),
+            torch.stack((X2, Y2, s[1], Z1, Z1)))
+    t0, t1 = m[0], m[1]
+    t3 = _fq("sub", m[2], _fq("add", t0, t1))      # X1Y2 + X2Y1
+    t4, t5 = _fq("add", m[3:5], torch.stack((X1, Y1)))  # X1Z2+X2Z1, Y1Z2+Y2Z1
+    v = torch.stack((t0, Z1, t4))
+    x3 = _fq("add", _fq("add", v, v), v)            # 3 t0, 3 Z1, 3 t4
+    t0 = x3[0]
+    x6 = _fq("add", x3[1:], x3[1:])
+    t2, y3 = _fq("add", x6, x3[1:])                 # 9 Z1, 9 t4
+    z3 = _fq("add", t1, t2)
+    t1 = _fq("sub", t1, t2)
+    p = _fq("mul", torch.stack((t3, t5, t1, y3, z3, t0)),
+            torch.stack((t1, y3, z3, t0, t5, t3)))
+    X3 = _fq("sub", p[0], p[1])
+    Y3, Z3 = _fq("add", torch.stack((p[2], p[4])), torch.stack((p[3], p[5])))
+    return torch.stack((X3, Y3, Z3), dim=-2)
+
+
 def double_plain(P: torch.Tensor) -> torch.Tensor:
     """RCB16 Algorithm 9 (complete, a = 0): 6 products + 2 squares."""
     X, Y, Z = P.unbind(-2)
@@ -100,15 +129,15 @@ def double_plain(P: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# K2 / K3 wrappers
+# K2 / K3 / K5 wrappers
 # ---------------------------------------------------------------------------
 
-def _check_points(name, *ts):
+def _check_points(name, *ts, coords=3):
     kernels.require_cuda_int32(name, *ts)
     for t in ts:
-        if t.shape[-2:] != (3, 8):
-            raise ValueError(f"{name}: expected (..., 3, 8) points, got "
-                             f"{tuple(t.shape)}")
+        if t.shape[-2:] != (coords, 8):
+            raise ValueError(f"{name}: expected (..., {coords}, 8) points, "
+                             f"got {tuple(t.shape)}")
 
 
 def add(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
@@ -127,6 +156,27 @@ def add(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
                                     out.data_ptr(), n,
                                     kernels.stream_ptr(P.device)),
                   "point_add")
+    return out
+
+
+def add_mixed(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
+    """Mixed addition P + Q: P (..., 3, 8) projective, any point; Q
+    (..., 2, 8) affine and never the identity (broadcasting over the
+    leading axes)."""
+    if P.device.type == "cpu":
+        return add_mixed_plain(P, Q)
+    lead = torch.broadcast_shapes(P.shape[:-2], Q.shape[:-2])
+    P = P.expand(lead + P.shape[-2:]).contiguous()
+    Q = Q.expand(lead + Q.shape[-2:]).contiguous()
+    out = torch.empty_like(P)
+    _check_points("point_add_mixed", P, out)
+    _check_points("point_add_mixed", Q, coords=2)
+    lib = kernels.lib("point_ops")
+    kernels.launches["point_add_mixed"] += 1
+    kernels.check(lib.h2t_point_add_mixed(P.data_ptr(), Q.data_ptr(),
+                                          out.data_ptr(), P.numel() // 24,
+                                          kernels.stream_ptr(P.device)),
+                  "point_add_mixed")
     return out
 
 

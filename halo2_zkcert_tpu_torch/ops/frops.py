@@ -23,18 +23,21 @@ def _mul(a, b, F=FR):
     return field.mul(F, a, b)
 
 
-def hillis_steele(state: tuple, combine) -> tuple:
+def hillis_steele(state: tuple, combine, combine_first=None) -> tuple:
     """Inclusive scan along axis 1 of (B, n, ...) tensors.
 
     Level d combines element i with element i - d.  The combine runs on
     the flat contiguous views `x[d:]` and `x[:-d]` of all rows at once; the
     first d elements of each row, where that pairing crosses a row, are then
-    restored.  `combine(earlier, later)` must be associative."""
+    restored.  `combine(earlier, later)` must be associative.
+    `combine_first`, if given, replaces it at level 1, where the later
+    operand is always an original input element."""
     B, n = state[0].shape[:2]
     d = 1
     while d < n:
         flat = [s.reshape((B * n,) + s.shape[2:]) for s in state]
-        new = combine(tuple(f[:-d] for f in flat), tuple(f[d:] for f in flat))
+        op = combine_first if d == 1 and combine_first else combine
+        new = op(tuple(f[:-d] for f in flat), tuple(f[d:] for f in flat))
         nxt = []
         for s, f, v in zip(state, flat, new):
             o = torch.empty_like(f)

@@ -29,6 +29,7 @@ SOURCES = {
     "field_binop": "field_binop.cu",
     "point_ops": "point_ops.cu",
     "quotient_forest": "quotient_forest.cu",
+    "scan_madd": "scan_madd.cu",
 }
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
@@ -41,6 +42,8 @@ _SIGNATURES = {
     "h2t_field_binop": [_I, _I, _P, _P, _P, _L, _L, _P],
     "h2t_point_add": [_P, _P, _P, _L, _P],
     "h2t_point_double": [_P, _P, _L, _P],
+    "h2t_point_add_mixed": [_P, _P, _P, _L, _P],
+    "h2t_scan_madd": [_P, _P, _L, _I, _P],
     "h2t_quotient_forest": [_P, _L, _P, _P, _I, _I, _P, _P],
 }
 

@@ -11,8 +11,15 @@ With canonical words the point tables ARE these bytes.
 The SRS is built on the device from the default tau: tau^i and the
 Lagrange values L_i(tau) = omega^i (tau^n - 1) / (n (tau - omega^i)) as Fr
 vectors, then g[i] = tau^i G and g_lagrange[i] = L_i(tau) G with one
-batched `curve.scalar_mul` (K2 and K3).  Commitments run the variable-base
-Pippenger of ops/msm.py.
+batched `curve.scalar_mul` (K2 and K3).
+
+Commitments of full-length columns on a CUDA device with n >= 4096 take the
+fixed-base flat Pippenger of ops/msm_fb.py over per-basis window tables,
+built lazily and cached beside the SRS file; everything else (short
+polynomials, small domains, CPU tensors) takes the variable-base Pippenger
+of ops/msm.py.  Two environment knobs, read at each call: H2T_FB_MSM
+(`auto`, `0` = always variable base, `1` = always fixed base) and
+H2T_FB_BOUNDED=0 (ignore the value-bit hints of bounded columns).
 """
 from __future__ import annotations
 
@@ -24,6 +31,7 @@ import torch
 
 from ..ops import curve, field, frops, msm
 from ..ops.field import FR
+from ..ops.msm_fb import FixedBaseMsm
 from ..utils import refcrypto as rc
 
 MAGIC = b"H2TPUSRS"
@@ -31,6 +39,10 @@ DEFAULT_TAU_SEED = b"halo2-zkcert-tpu-test-srs"
 # columns per MSM batch: bounds the (columns x 32 windows x n) sorted point
 # tables (96 B a point) that one batch keeps alive
 COMMIT_GROUP = 4
+# the fixed-base path: smallest domain that takes it by default, and the
+# window width of its tables
+FB_MIN_N = 4096
+FB_WBITS = 16
 
 
 def _default_tau() -> int:
@@ -52,6 +64,23 @@ class ParamsKZG:
 
     def commit_lagrange(self, values: torch.Tensor):
         return commit_many_lagrange(self, values[None])[0]
+
+    def fixed_base(self, lagrange: bool) -> FixedBaseMsm:
+        """The flat-Pippenger tables of one SRS basis (ops/msm_fb.py), built
+        at first use; kept on this object and, where $PARAMS_DIR (default
+        ./params) exists, in a file beside the SRS cache."""
+        attr = "_fb_lagrange" if lagrange else "_fb_monomial"
+        fb = self.__dict__.get(attr)
+        if fb is None:
+            d = os.environ.get("PARAMS_DIR", "./params")
+            tag = "lag" if lagrange else "mono"
+            cache = os.path.join(
+                d, f"kzg_bn254_{self.k}.fbtab{FB_WBITS}_{tag}.torch.npy") \
+                if os.path.isdir(d) else None
+            fb = FixedBaseMsm(self.g_lagrange if lagrange else self.g,
+                              wbits=FB_WBITS, cache_path=cache)
+            self.__dict__[attr] = fb
+        return fb
 
     # ---- serialization -------------------------------------------------------
 
@@ -119,27 +148,69 @@ def gen_srs(k: int, params_dir: str | None = None, device="cuda") -> ParamsKZG:
     return params
 
 
-def _commit(base: torch.Tensor, cols) -> list:
+def _stack(cols):
+    """A tensor or a list of columns -> (m, len, 8), or None when empty."""
     if not isinstance(cols, torch.Tensor):
-        if not len(cols):
-            return []
-        cols = torch.stack(list(cols))
+        cols = torch.stack(list(cols)) if len(cols) else None
+    return cols if cols is not None and cols.shape[0] else None
+
+
+def _fb_wanted(n: int, device: torch.device) -> bool:
+    mode = os.environ.get("H2T_FB_MSM", "auto")
+    if mode in ("0", "1"):
+        return mode == "1"
+    return device.type == "cuda" and n >= FB_MIN_N
+
+
+def _affine_ints(accs: torch.Tensor) -> list:
+    return curve.points_from_device(curve.to_affine(accs))
+
+
+def _fb_commit(fb: FixedBaseMsm, cols: torch.Tensor, value_bits=None,
+               blind_lo=None) -> list:
+    if os.environ.get("H2T_FB_BOUNDED") == "0":
+        value_bits = None
+    if value_bits is not None and blind_lo is not None:
+        return _affine_ints(fb.msm_many_bounded(cols, value_bits, blind_lo))
+    return _affine_ints(fb.msm_many(cols))
+
+
+def _commit(base: torch.Tensor, cols: torch.Tensor) -> list:
     out = []
     for off in range(0, cols.shape[0], COMMIT_GROUP):
-        accs = msm.msm_many(base, cols[off:off + COMMIT_GROUP])
-        out.extend(curve.points_from_device(curve.to_affine(accs)))
+        out.extend(_affine_ints(
+            msm.msm_many(base, cols[off:off + COMMIT_GROUP])))
     return out
 
 
-def commit_many_lagrange(params: ParamsKZG, cols) -> list:
-    """Commit Lagrange-basis columns (m, n, 8) -> [(x, y)] ints."""
+def commit_path(params: ParamsKZG) -> str:
+    """Which MSM a full-length commitment takes now: for reports."""
+    return ("fixed_base" if _fb_wanted(params.n, params.g.device)
+            else "variable_base")
+
+
+def commit_many_lagrange(params: ParamsKZG, cols, value_bits=None,
+                         blind_lo=None) -> list:
+    """Commit Lagrange-basis columns (m, n, 8) -> [(x, y)] ints.
+
+    value_bits / blind_lo: an optional bound, rows < blind_lo are
+    < 2^value_bits; the fixed-base path then does only
+    ceil(value_bits / wbits) windows of bucket work a row."""
+    cols = _stack(cols)
+    if cols is None:
+        return []
+    if _fb_wanted(params.n, cols.device):
+        return _fb_commit(params.fixed_base(lagrange=True), cols, value_bits,
+                          blind_lo)
     return _commit(params.g_lagrange, cols)
 
 
 def commit_many(params: ParamsKZG, polys) -> list:
     """Commit monomial-basis polynomials (m, deg, 8) -> [(x, y)] ints."""
-    if not isinstance(polys, torch.Tensor):
-        if not len(polys):
-            return []
-        polys = torch.stack(list(polys))
-    return _commit(params.g[:polys.shape[1]], polys)
+    polys = _stack(polys)
+    if polys is None:
+        return []
+    deg = polys.shape[1]
+    if deg == params.n and _fb_wanted(params.n, polys.device):
+        return _fb_commit(params.fixed_base(lagrange=False), polys)
+    return _commit(params.g[:deg], polys)

@@ -59,6 +59,23 @@ def _eval_expr_lagrange(e: ex.Expr, n: int, advice, fixed, instance,
     )
 
 
+def _commit_mixed(params: ParamsKZG, cols: list, bits: list,
+                  blind_lo: int) -> list:
+    """Commit columns with per-column value-bit hints, keeping their order:
+    columns with a bound (bits[i] not None) go through the bounded-window
+    fixed-base path grouped by bound, the rest through the full path."""
+    pts = [None] * len(cols)
+    groups: dict = {}
+    for i, b in enumerate(bits):
+        groups.setdefault(b, []).append(i)
+    for b, idxs in groups.items():
+        hint = {} if b is None else dict(value_bits=b, blind_lo=blind_lo)
+        for i, pt in zip(idxs, commit_many_lagrange(
+                params, [cols[i] for i in idxs], **hint)):
+            pts[i] = pt
+    return pts
+
+
 def _compress(exprs, theta: int, leaf_eval) -> torch.Tensor:
     """theta-fold: acc = acc * theta + value (halo2 lookup compression)."""
     acc = None
@@ -223,7 +240,8 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
         for i in expected:
             advice_cols[i] = blind(phase_cols[i].to(dev), u_row)
             batch.append(advice_cols[i])
-        for pt in commit_many_lagrange(params, batch):
+        bits = [csys.advice_value_bits.get(i) for i in expected]
+        for pt in _commit_mixed(params, batch, bits, u_row):
             transcript.write_point(pt)
         for ci, cp in enumerate(csys.challenge_phases):
             if cp == phase:
@@ -236,7 +254,7 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
         return _eval_expr_lagrange(e, n, advice_cols, pk.fixed_lagrange,
                                    inst_lag, challenges, dev)
 
-    lookups, lk_batch = [], []
+    lookups, lk_batch, lk_bits = [], [], []
     for lk in csys.lookups:
         a_comp = _compress([p[0] for p in lk.pairs], theta, leaf)
         s_comp = _compress([p[1] for p in lk.pairs], theta, leaf)
@@ -246,8 +264,9 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
             raise ValueError(f"lookup '{lk.name}' failure: input not in table")
         a_arr, s_arr = blind(a_arr, u_row), blind(s_arr, u_row)
         lk_batch += [a_arr, s_arr]
+        lk_bits += [lk.max_bits, lk.max_bits]
         lookups.append(dict(a=a_comp, s=s_comp, a_perm=a_arr, s_perm=s_arr))
-    for pt in commit_many_lagrange(params, lk_batch):
+    for pt in _commit_mixed(params, lk_batch, lk_bits, u_row):
         transcript.write_point(pt)
     tick("lookup permute+commit")
     beta = transcript.squeeze_challenge()

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_zkcert_tpu_torch.ops import curve, field
+from halo2_zkcert_tpu_torch.ops import curve, field, msm_fb
 from halo2_zkcert_tpu_torch.ops.field import FQ, FR
 from halo2_zkcert_tpu_torch.plonk import quotient
 from halo2_zkcert_tpu_torch.plonk.cs import ConstraintSystem
@@ -39,6 +39,8 @@ def hc(tmp_path_factory):
     lib.hc_field_binop.argtypes = [ctypes.c_int, ctypes.c_int, P, P, P, L]
     lib.hc_point_add.argtypes = [P, P, P, L]
     lib.hc_point_double.argtypes = [P, P, L]
+    lib.hc_point_add_mixed.argtypes = [P, P, P, L]
+    lib.hc_scan_madd.argtypes = [P, P, L, ctypes.c_int]
     lib.hc_quotient_forest.argtypes = [P, L, P, P, ctypes.c_int, ctypes.c_int,
                                        P]
     return lib
@@ -94,6 +96,39 @@ def test_point_add_and_double_host(hc):
         for p, q in zip(ps, qs)]
     hc.hc_point_double(_ptr(P_), _ptr(out), len(ps))
     assert torch.equal(out, curve.double_plain(P_))
+
+
+def test_point_add_mixed_host(hc):
+    """P + Q with Q affine: random, P = Q, P = -Q, P = identity."""
+    ps, qs = _points(5, 12), _points(6, 12)
+    ps[1] = qs[1]
+    ps[2] = rc.g1_to_affine(rc.g1_neg(rc.g1_from_affine(qs[2])))
+    ps[3] = (0, 0)
+    P_ = curve.from_affine(curve.points_to_device(ps, "cpu")).contiguous()
+    Q_ = curve.points_to_device(qs, "cpu").contiguous()
+    out = torch.empty_like(P_)
+    hc.hc_point_add_mixed(_ptr(P_), _ptr(Q_), _ptr(out), len(ps))
+    assert torch.equal(out, curve.add_mixed_plain(P_, Q_))
+    assert torch.equal(out, curve.add_plain(P_, curve.from_affine(Q_)))
+    assert curve.points_from_device(curve.to_affine(out)) == [
+        rc.g1_to_affine(rc.g1_add(rc.g1_from_affine(p), rc.g1_from_affine(q)))
+        for p, q in zip(ps, qs)]
+
+
+@pytest.mark.parametrize("C", [1, 5, 64])
+def test_scan_madd_host(hc, C):
+    """Row prefixes of the K6 row function: equal to the plain version,
+    and the last prefix of each row to the oracle's sum of the row; a row of
+    one point repeated covers doubling inside the scan."""
+    R = 3
+    pts = _points(7 + C, R * C)
+    pts[C:2 * C] = [pts[C]] * C
+    xy = curve.points_to_device(pts, "cpu").reshape(R, C, 2, 8).contiguous()
+    out = torch.empty((R, C, 3, 8), dtype=torch.int32)
+    hc.hc_scan_madd(_ptr(xy), _ptr(out), R, C)
+    assert torch.equal(out, msm_fb.scan_madd_plain(xy))
+    assert curve.points_from_device(curve.to_affine(out[:, -1])) == [
+        rc.g1_msm(pts[r * C:(r + 1) * C], [1] * C) for r in range(R)]
 
 
 def _toy_cs():

@@ -4,6 +4,10 @@ the JAX package: from the same proving key (carried across with
 equals the JAX proof byte for byte, for the Poseidon and the Keccak
 transcript.
 
+One more Poseidon proof takes every full-length commitment through the
+fixed-base MSM (forced on the CPU, window tables at 8 bits) and must give the
+same bytes.
+
 The JAX side is read from tests/data/toy_reference.npz (written by
 tests/data/make_toy_reference.py); the slow test at the end regenerates it
 with the JAX package and compares.
@@ -60,6 +64,27 @@ def _proof(toy, name):
 @pytest.mark.parametrize("name", ["poseidon", "keccak"])
 def test_proof_bytes_equal_reference(toy, name):
     assert _proof(toy, name) == toy["ref"][f"proof_{name}"].tobytes()
+
+
+def test_proof_on_the_fixed_base_equals_reference(toy, monkeypatch, tmp_path):
+    """Commitments through ops/msm_fb.py (advice, lookup, Z, h and multiopen
+    columns) change no byte of the proof."""
+    from halo2_zkcert_tpu_torch.ops import msm_fb
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    monkeypatch.setenv("H2T_FB_MSM", "1")
+    monkeypatch.setenv("PARAMS_DIR", str(tmp_path))
+    monkeypatch.setattr(kzg, "FB_WBITS", 8)
+    used = []
+    real = msm_fb.FixedBaseMsm.msm_many
+    monkeypatch.setattr(msm_fb.FixedBaseMsm, "msm_many",
+                        lambda *a, **k: used.append(1) or real(*a, **k))
+    p = toy["params"]
+    params = kzg.ParamsKZG(p.k, p.g, p.g_lagrange, p.g2, p.s_g2)
+    proof = create_proof(params, toy["pk"], toy["advice"], toy["instances"],
+                         PoseidonTranscript())
+    assert used and "_fb_lagrange" in params.__dict__ \
+        and "_fb_monomial" in params.__dict__
+    assert proof == toy["ref"]["proof_poseidon"].tobytes()
 
 
 def test_stage_times_recorded(toy):
