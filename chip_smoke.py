@@ -6,7 +6,12 @@ Phases, each printing its own line:
   1. build the hand-written kernels (csrc/*.cu, one nvcc per source, in
      parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes of the main path (exact equality), and time both;
+     shapes of the main path, and time both.  The elementwise kernels, the
+     quotient and the mixed-add row scan give their plain version's words
+     exactly (with digits, in the slots the scan's contract defines); the
+     blocked point scan and row sum add in another order than their plain
+     versions, so they are compared after curve.to_affine, exactly
+     (canonical affine words are unique);
   3. build the k=17 SRS on the card from the default tau and the fixed-base
      window tables of both bases; commit the committed RSA proving key's 12
      fixed and 3 sigma columns through the variable-base and through the
@@ -19,7 +24,10 @@ Phases, each printing its own line:
      variable base forced; each proof must verify, a tampered copy must be
      rejected, and the bytes must equal build/rsa_1.proof;
   5. the kernels' launch counts on each driven path: every kernel must have
-     been launched on one of them.
+     been launched on one of them, and the fixed-base proof must launch
+     point_add, point_scan and point_row_sum under 100 times together (its
+     scans are blocked kernels, not a launch a level).  The [shapes] lines
+     give the shapes the point kernels were called with on each proof.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -98,10 +106,14 @@ def random_canonical(rng: np.random.Generator, count: int, device,
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def _record(name, source, replaces, err, ms, plain_ms, bytes_moved, ops):
+def _record(name, source, replaces, err, ms, plain_ms, bytes_moved, ops,
+            counter=None):
+    """`counter`: the key of ops/kernels.launches that the record's wrapper
+    counts under, where several records (shapes, options) share one."""
     bound_b = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound_o = ops / OPS_PER_S * 1e3
-    return {"name": name, "route": "cuda", "source": source,
+    return {"name": name, "counter": counter or name, "route": "cuda",
+            "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_b, bound_o),
@@ -189,9 +201,11 @@ def check_points(device, n: int, rng) -> list:
     return recs
 
 
-def check_mixed(device, n: int, rows: int, rng) -> list:
-    """K5 at n points and K6 at `rows` rows of SCAN_C points (one full
-    column's pairs), table-like affine operands."""
+def check_mixed(device, n: int, rows: int, small_pairs: int, rng) -> list:
+    """K5 at n points, and K6 at `rows` rows of 64 points (one full column's
+    pairs), every prefix written and, given digits spread as a full column's
+    are, the defined slots only; then K6 at the shape a bounded column of
+    `small_pairs` pairs gives it.  Table-like affine operands."""
     from halo2_zkcert_tpu_torch.ops import curve, msm_fb
     from halo2_zkcert_tpu_torch.utils import refcrypto as rc
     G = rc.g1_from_affine(rc.G1_GEN)
@@ -203,33 +217,97 @@ def check_mixed(device, n: int, rows: int, rng) -> list:
         return aff[torch.from_numpy(rng.integers(0, 64, size=shape))
                    .to(device)].contiguous()
 
+    def digits(R, C):
+        d = np.sort(rng.integers(0, 1 << 16, size=R * C)).astype(np.int32)
+        return torch.from_numpy(d.reshape(R, C)).to(device)
+
     P, Q = sample_points(device, n, rng), pick(n)
     P[1:4] = curve.from_affine(Q[1:4])            # P + P
     P[4:8] = curve.neg(curve.from_affine(Q[4:8]))  # (-Q) + Q
-    C = msm_fb.SCAN_C
+    C = msm_fb.SCAN_ROW_MAX
     xy = pick(rows, C)
     xy[1] = xy[1, :1]                             # a row that keeps doubling
+    d_full = digits(rows, C)
+    Cs = msm_fb.scan_row_length(small_pairs)
+    xy_small, d_small = pick(small_pairs // Cs, Cs), digits(small_pairs // Cs,
+                                                            Cs)
     src = "halo2_zkcert_tpu_torch/csrc/"
+    k6 = (src + "scan_madd.cu", "halo2_zkcert_tpu/ops/pallas_limbs.py:533")
     cases = (
-        ("point_add_mixed", lambda: curve.add_mixed(P, Q),
+        ("point_add_mixed", None, lambda: curve.add_mixed(P, Q),
          lambda: curve.add_mixed_plain(P, Q), src + "point_ops.cu",
-         "halo2_zkcert_tpu/ops/pallas_limbs.py:393", n, 8 * 32),
-        ("scan_madd", lambda: msm_fb.scan_madd(xy),
-         lambda: msm_fb.scan_madd_plain(xy), src + "scan_madd.cu",
-         "halo2_zkcert_tpu/ops/pallas_limbs.py:533", rows * C, 5 * 32),
+         "halo2_zkcert_tpu/ops/pallas_limbs.py:393", n, 8 * 32, None),
+        ("scan_madd", None, lambda: msm_fb.scan_madd(xy),
+         lambda: msm_fb.scan_madd_plain(xy), *k6, rows * C, 5 * 32, None),
+        (f"scan_madd.digits[{rows}x{C}]", "scan_madd",
+         lambda: msm_fb.scan_madd(xy, d_full),
+         lambda: msm_fb.scan_madd_plain(xy), *k6, rows * C, 5 * 32,
+         msm_fb.scan_madd_defined(d_full)),
+        (f"scan_madd.digits[{small_pairs // Cs}x{Cs}]", "scan_madd",
+         lambda: msm_fb.scan_madd(xy_small, d_small),
+         lambda: msm_fb.scan_madd_plain(xy_small), *k6, small_pairs, 5 * 32,
+         msm_fb.scan_madd_defined(d_small)),
     )
     recs = []
-    for name, kern, plain, source, replaces, pairs, bytes_per in cases:
+    for (name, counter, kern, plain, source, replaces, pairs, bytes_per,
+         mask) in cases:
         got, want = kern(), plain()
         torch.cuda.synchronize()
+        if mask is not None:
+            got, want = got[mask], want[mask]
         err = max_abs_err(got, want)
         ok = torch.equal(got, want)
-        log(f"[kernels] {name} pairs={pairs}: {'exact' if ok else 'MISMATCH'}")
+        log(f"[kernels] {name} pairs={pairs}: {'exact' if ok else 'MISMATCH'}"
+            + ("" if mask is None else
+               f" in the {int(mask.sum())} defined slots"))
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         recs.append(_record(name, source, replaces, err, cuda_ms(kern, 10),
                             cuda_ms(plain, 1, 1), bytes_per * pairs,
-                            11 * OPS_PER_MUL * pairs))
+                            11 * OPS_PER_MUL * pairs, counter))
+    return recs
+
+
+def check_scans(device, B: int, n_buckets: int, n_totals: int, rng) -> list:
+    """The blocked point scan and row sum at the main path's shapes: from the
+    row's end over (B, n_buckets) buckets, a third of them empty, and their
+    row sum (the bucket combine), and forward over (B, n_totals) row totals.
+    Compared with the plain versions as affine points."""
+    from halo2_zkcert_tpu_torch.ops import curve, scan
+    P = sample_points(device, B * n_buckets, rng).reshape(B, n_buckets, 3, 8)
+    empty = torch.from_numpy(rng.random((B, n_buckets)) < 1 / 3).to(device)
+    P = curve.select(empty, curve.identity((B, n_buckets), device), P)
+    P[1] = P[1, :1]                               # a row that keeps doubling
+    P = P.contiguous()
+    T = P[:, :n_totals].contiguous()
+    src = "halo2_zkcert_tpu_torch/csrc/point_scan.cu"
+    replaces = "halo2_zkcert_tpu/ops/pallas_limbs.py:372"
+    cases = (
+        (f"point_scan.reverse[{B}x{n_buckets}]", "point_scan", P,
+         lambda: scan.point_scan(P, reverse=True),
+         lambda: scan.point_scan_plain(P, reverse=True), 2 * 96),
+        (f"point_scan[{B}x{n_totals}]", "point_scan", T,
+         lambda: scan.point_scan(T), lambda: scan.point_scan_plain(T),
+         2 * 96),
+        (f"point_row_sum[{B}x{n_buckets}]", "point_row_sum", P,
+         lambda: scan.point_row_sum(P), lambda: scan.point_row_sum_plain(P),
+         96),
+    )
+    recs = []
+    for name, counter, X, kern, plain, bytes_per in cases:
+        got, want = curve.to_affine(kern()), curve.to_affine(plain())
+        torch.cuda.synchronize()
+        err = max_abs_err(got, want)
+        ok = torch.equal(got, want)
+        log(f"[kernels] {name}: "
+            f"{'equal as affine points' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        points = X.shape[0] * X.shape[1]
+        recs.append(_record(name, src, replaces, err, cuda_ms(kern, 10),
+                            cuda_ms(plain, 1, 1), bytes_per * points,
+                            12 * OPS_PER_MUL * (points - X.shape[0]),
+                            counter))
     return recs
 
 
@@ -338,7 +416,7 @@ def check_ragged(device, params, n: int) -> dict:
     rng = np.random.default_rng(n)
     cols = random_canonical(rng, 2 * n, device, FR.modulus).reshape(2, n, 8)
     fb = msm_fb.FixedBaseMsm(base)
-    assert fb.nwin * n % msm_fb.SCAN_C, "pair count must be ragged"
+    assert fb.nwin * n % msm_fb.SCAN_ROW_MAX, "pair count must be ragged"
     kernels.reset_launches()
     got = curve.to_affine(fb.msm_many(cols))
     launches = dict(kernels.launches)
@@ -350,6 +428,31 @@ def check_ragged(device, params, n: int) -> dict:
     if not ok:
         raise AssertionError("ragged fixed-base MSM differs")
     return launches
+
+
+class recorded_shapes:
+    """Count, for the block, the shapes that the point kernels' wrappers are
+    called with (`curve.add`, `msm_fb.scan_madd`, `scan.point_scan`,
+    `scan.point_row_sum`): `.shapes` maps "name(shape)" to calls."""
+
+    def __enter__(self):
+        from collections import Counter
+        from halo2_zkcert_tpu_torch.ops import curve, msm_fb, scan
+        self.shapes = Counter()
+        self.saved = [(curve, "add"), (msm_fb, "scan_madd"),
+                      (scan, "point_scan"), (scan, "point_row_sum")]
+        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
+        for mod, name, fn in self.saved:
+            def wrapped(x, *a, _fn=fn, _name=name, **k):
+                lead = "x".join(str(d) for d in x.shape[:-2])
+                self.shapes[f"{_name}({lead})"] += 1
+                return _fn(x, *a, **k)
+            setattr(mod, name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self.saved:
+            setattr(mod, name, fn)
 
 
 def prove(device, label, params, circuit, pk, sig, digest, warmup) -> dict:
@@ -365,8 +468,9 @@ def prove(device, label, params, circuit, pk, sig, digest, warmup) -> dict:
     runs = (["warm-up"] if warmup else []) + ["timed"]
     for what in runs:
         kernels.reset_launches()
-        proof, instances, dt = prove_rsa(params, circuit, pk, sig, digest,
-                                         device)
+        with recorded_shapes() as rec:
+            proof, instances, dt = prove_rsa(params, circuit, pk, sig, digest,
+                                             device)
         launches = dict(kernels.launches)
         same = ref.proof == proof and ref.instances == instances
         log(f"[prove] {label}: {what} proof {dt:.3f} s, {len(proof)} bytes, "
@@ -386,6 +490,7 @@ def prove(device, label, params, circuit, pk, sig, digest, warmup) -> dict:
         f"rejects a flipped byte: {rejected}")
     if not (ok and rejected):
         raise AssertionError(f"{label}: verifier check failed")
+    log(f"[shapes] {label}: {json.dumps(rec.shapes, sort_keys=True)}")
     return launches
 
 
@@ -407,7 +512,10 @@ def main() -> int:
 
     recs = check_field(device, 1 << 19, rng)
     recs += check_points(device, 1 << 17, rng)
-    recs += check_mixed(device, 1 << 17, 1 << 15, rng)
+    # a bounded column of the proof: one window of every row and the other
+    # 15 of the blinding rows, padded to whole 64-point rows
+    recs += check_mixed(device, 1 << 17, 1 << 15, 131264, rng)
+    recs += check_scans(device, 4, (1 << 16) - 1, 1 << 15, rng)
     recs.append(check_quotient(
         device, os.path.join(REPO, "build", "rsa_1.pk.vk"), rng))
     for r in recs:
@@ -431,7 +539,7 @@ def main() -> int:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")
     for r in recs:
-        r["launches_by_path"] = {p: launches[p].get(r["name"], 0)
+        r["launches_by_path"] = {p: launches[p].get(r["counter"], 0)
                                  for p in paths}
         r["launches_path"] = next(
             (p for p in paths if r["launches_by_path"][p] > 0), None)
@@ -439,6 +547,13 @@ def main() -> int:
     missing = [r["name"] for r in recs if r["launches"] <= 0]
     if missing:
         raise AssertionError(f"kernels launched on no driven path: {missing}")
+    fb = launches["fixed_base_proof"]
+    point_launches = sum(fb.get(k, 0) for k in ("point_add", "point_scan",
+                                                "point_row_sum"))
+    if point_launches >= 100 or not fb.get("scan_madd"):
+        raise AssertionError(f"fixed-base proof: {point_launches} launches of "
+                             f"the point kernels, scan_madd "
+                             f"{fb.get('scan_madd', 0)}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -16,7 +16,10 @@ the line also carries the device's busy and idle share of that proof and its
 device time by kernel name, the hand-written kernels (k_*) all listed.
 With --sweep-scan-c no proof runs: the line carries the time of one group of
 four full columns and of one bounded 16-bit column through the fixed-base
-MSM for several row lengths of the scan kernel (ops/msm_fb.SCAN_C).
+MSM for each row length of the scan kernel, forced in place of what
+ops/msm_fb.scan_row_length picks, and the row length it does pick.
+With --cios-rate no proof runs either: the line carries the rate of bare
+256-bit Montgomery products on the card (csrc/cios_rate.cu).
 """
 from __future__ import annotations
 
@@ -101,10 +104,26 @@ def profile_proof(params, circuit, pk, sig, digest, top: int = 12) -> dict:
             "kernel_s_by_name": {k[:80]: v / 1e6 for k, v in names}}
 
 
-def sweep_scan_c(params, widths=(8, 16, 32, 64, 128, 256)) -> dict:
+def _cuda_ms(fn, iters: int) -> float:
+    """Mean milliseconds of fn() on the device (CUDA events) after one
+    untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def sweep_scan_c(params, widths=(8, 16, 32, 64)) -> dict:
     """Milliseconds (CUDA events, mean of 3 after a warm-up) of
     `msm_many` over four full random columns and of `msm_many_bounded` over
-    one 16-bit column with a 6-row blinding tail, per scan row length."""
+    one 16-bit column with a 6-row blinding tail, per scan row length
+    ("picked": the row length left to `scan_row_length`)."""
     import numpy as np
 
     from .ops import msm_fb
@@ -117,28 +136,52 @@ def sweep_scan_c(params, widths=(8, 16, 32, 64, 128, 256)) -> dict:
     small = cols[4:].clone()
     small[0, :n - 6, 1:] = 0
     small[0, :n - 6, 0] &= 0xFFFF
-    saved, out = msm_fb.SCAN_C, {}
+    saved, out = msm_fb.scan_row_length, {}
+    picked = {}
+    fb.msm_many(cols[:4])          # the allocator's first growth is not timed
+    fb.msm_many_bounded(small, 16, n - 6)
     try:
-        for C in widths:
-            msm_fb.SCAN_C = C
+        for C in widths + ("picked",):
+            if C == "picked":
+                msm_fb.scan_row_length = \
+                    lambda pairs: picked.setdefault(pairs, saved(pairs))
+            else:
+                msm_fb.scan_row_length = lambda pairs, C=C: C
             row = {}
             for name, fn in (
                     ("full4_ms", lambda: fb.msm_many(cols[:4])),
                     ("bounded1_ms", lambda: fb.msm_many_bounded(small, 16,
                                                                 n - 6))):
-                fn()
-                torch.cuda.synchronize()
-                t0 = torch.cuda.Event(enable_timing=True)
-                t1 = torch.cuda.Event(enable_timing=True)
-                t0.record()
-                for _ in range(3):
-                    fn()
-                t1.record()
-                torch.cuda.synchronize()
-                row[name] = t0.elapsed_time(t1) / 3
+                row[name] = _cuda_ms(fn, 3)
             out[str(C)] = row
     finally:
-        msm_fb.SCAN_C = saved
+        msm_fb.scan_row_length = saved
+    out["picked"]["row_length_by_pairs"] = picked
+    return out
+
+
+def cios_rate(device) -> dict:
+    """Products a second of the kernels' own CIOS Montgomery product with
+    every SM full and 1, 2 or 4 independent chains a thread (CUDA events,
+    mean of 5 after a warm-up), and the same as 32-bit multiply-add
+    operations at the 544 a product that the kernels' bounds count."""
+    from .ops import kernels
+    lib = kernels.lib("cios_rate")
+    threads, iters = 256, 2048
+    blocks = 8 * torch.cuda.get_device_properties(
+        device).multi_processor_count
+    seed = torch.arange(3, 19, dtype=torch.int32, device=device)
+    sink = torch.empty(blocks * threads, dtype=torch.int32, device=device)
+    out = {}
+    for chains in (1, 2, 4):
+        def launch():
+            kernels.check(lib.h2t_cios_rate(
+                seed.data_ptr(), sink.data_ptr(), blocks, threads, chains,
+                iters, kernels.stream_ptr(seed.device)), "cios_rate")
+        per_s = blocks * threads * chains * iters / (
+            _cuda_ms(launch, 5) * 1e-3)
+        out[f"chains_{chains}"] = {"products_per_s": per_s,
+                                   "operations_per_s": per_s * 544}
     return out
 
 
@@ -150,9 +193,16 @@ def main() -> None:
                     help="timed proofs after the warm-up; value = the median")
     ap.add_argument("--sweep-scan-c", action="store_true",
                     help="time the fixed-base MSM per scan row length; no proof")
+    ap.add_argument("--cios-rate", action="store_true",
+                    help="time bare Montgomery products; no proof")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("bench: no CUDA device")
+    if args.cios_rate:
+        print(json.dumps({"metric": "cios_products_per_s",
+                          "device": torch.cuda.get_device_name(0),
+                          "value": cios_rate(torch.device("cuda", 0))}))
+        return
     from .ops import kernels
     from .plonk import gen_srs, kzg, prover, verify_proof
     from .transcript import PoseidonTranscript

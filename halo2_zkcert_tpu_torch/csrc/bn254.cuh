@@ -18,6 +18,17 @@
 #define H2T_HD inline
 #endif
 
+// The Montgomery product is some hundreds of instructions.  A kernel that
+// inlines a dozen of them at each of several call sites outgrows the SM's
+// instruction cache and stalls on fetches; a source that defines
+// H2T_MONT_MUL_CALL before including this header gets the product as one
+// real function a field instead, called with its operands in registers.
+#if defined(__CUDACC__) && defined(H2T_MONT_MUL_CALL)
+#define H2T_MUL_HD __host__ __device__ __noinline__
+#else
+#define H2T_MUL_HD H2T_HD
+#endif
+
 namespace bn254 {
 
 enum FieldId { FR = 0, FQ = 1 };
@@ -116,7 +127,7 @@ template <int F> H2T_HD Fe fsub(const Fe& a, const Fe& b) {
 }
 
 // CIOS Montgomery product a * b * 2^-256 mod p, for a, b < p.
-template <int F> H2T_HD Fe mont_mul(const Fe& a, const Fe& b) {
+template <int F> H2T_MUL_HD Fe mont_mul(const Fe& a, const Fe& b) {
   uint32_t t[10];
 #pragma unroll
   for (int i = 0; i < 10; ++i) t[i] = 0;
@@ -335,33 +346,157 @@ H2T_HD Fe tape_eval_row(long long row, long long n_rows, const uint32_t* leaves,
 }
 
 // ---------------------------------------------------------------------------
-// One row of the mixed-add prefix scan: C canonical affine points (x, y) at
-// `src` (16 words each) -> C canonical projective inclusive prefixes at
-// `dst` (24 words each).  Prefix 0 is the point itself with Z = 1; the
-// running sum stays in Montgomery form across all C - 1 mixed additions.
+// Points in memory: 24 canonical words (X, Y, Z), affine table points 16
+// (x, y).  The *_v forms move 16 bytes at a time in device code (every
+// element a kernel addresses starts on a 16-byte boundary, in device memory
+// and in the padded shared-memory tiles); on the host they are word loops.
 // ---------------------------------------------------------------------------
 
-H2T_HD void scan_madd_row(const uint32_t* src, uint32_t* dst, int C) {
+H2T_HD Fe load_fe_v(const uint32_t* src) {
+#if defined(__CUDA_ARCH__)
+  const uint4* q = reinterpret_cast<const uint4*>(src);
+  uint4 lo = q[0], hi = q[1];
+  Fe r;
+  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
+  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
+  return r;
+#else
+  return load_fe(src);
+#endif
+}
+
+H2T_HD void store_fe_v(uint32_t* dst, const Fe& v) {
+#if defined(__CUDA_ARCH__)
+  uint4* q = reinterpret_cast<uint4*>(dst);
+  q[0] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  q[1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+#else
+  store_fe(dst, v);
+#endif
+}
+
+H2T_HD Pt load_pt_v(const uint32_t* src) {
+  Pt r;
+  r.x = load_fe_v(src);
+  r.y = load_fe_v(src + 8);
+  r.z = load_fe_v(src + 16);
+  return r;
+}
+
+H2T_HD void store_pt_v(uint32_t* dst, const Pt& v) {
+  store_fe_v(dst, v.x);
+  store_fe_v(dst + 8, v.y);
+  store_fe_v(dst + 16, v.z);
+}
+
+H2T_HD Fe fq_one_mont() {
   Fe one = fe_zero();
   one.w[0] = 1;
-  Fe x = load_fe(src), y = load_fe(src + 8);
-  store_fe(dst, x);
-  store_fe(dst + 8, y);
-  store_fe(dst + 16, one);
-  Pt acc;
-  acc.x = to_mont<FQ>(x);
-  acc.y = to_mont<FQ>(y);
-  acc.z = to_mont<FQ>(one);
+  return to_mont<FQ>(one);
+}
+
+// The identity (0, 1, 0) in Montgomery form.
+H2T_HD Pt pt_identity_mont() {
+  Pt r;
+  r.x = fe_zero();
+  r.y = fq_one_mont();
+  r.z = fe_zero();
+  return r;
+}
+
+// ---------------------------------------------------------------------------
+// The blocked scan of projective points (point_scan.cu): what one thread
+// does on its run of `cnt` consecutive points, 24 words each at `p`.
+//
+// scan_run_local: canonical points -> in place, their inclusive prefixes
+// within the run in Montgomery form (one conversion in a point, cnt - 1
+// additions); returns the run's total, the identity for an empty run.
+// scan_run_apply: prefix k -> canonical off + prefix k (one addition and one
+// conversion out a point).  `off`, the sum of everything before the run,
+// comes from the totals of the other runs.
+// point_sum_strided: the reduce half, the sum of `cnt` canonical points
+// `stride` words apart, in Montgomery form.
+// ---------------------------------------------------------------------------
+
+H2T_HD Pt scan_run_local(uint32_t* p, int cnt) {
+  if (cnt <= 0) return pt_identity_mont();
+  Pt acc = pt_to_mont(load_pt_v(p));
+  store_pt_v(p, acc);
 #pragma unroll 1
-  for (int j = 1; j < C; ++j) {
-    x = to_mont<FQ>(load_fe(src + 16 * j));
-    y = to_mont<FQ>(load_fe(src + 16 * j + 8));
-    acc = point_madd_mont(acc, x, y);
-    Pt out = pt_from_mont(acc);
-    store_fe(dst + 24 * j, out.x);
-    store_fe(dst + 24 * j + 8, out.y);
-    store_fe(dst + 24 * j + 16, out.z);
+  for (int k = 1; k < cnt; ++k) {
+    acc = point_add_mont(acc, pt_to_mont(load_pt_v(p + 24 * k)));
+    store_pt_v(p + 24 * k, acc);
   }
+  return acc;
+}
+
+H2T_HD void scan_run_apply(uint32_t* p, int cnt, const Pt& off) {
+#pragma unroll 1
+  for (int k = 0; k < cnt; ++k)
+    store_pt_v(p + 24 * k,
+               pt_from_mont(point_add_mont(off, load_pt_v(p + 24 * k))));
+}
+
+H2T_HD Pt point_sum_strided(const uint32_t* p, long long stride,
+                            long long cnt) {
+  if (cnt <= 0) return pt_identity_mont();
+  Pt acc = pt_to_mont(load_pt_v(p));
+#pragma unroll 1
+  for (long long k = 1; k < cnt; ++k)
+    acc = point_add_mont(acc, pt_to_mont(load_pt_v(p + stride * k)));
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// One row of the mixed-add prefix scan (scan_madd.cu): C canonical affine
+// points (x, y), 16 words each, -> canonical projective inclusive prefixes,
+// 24 words each.  The running sum stays in Montgomery form across all C - 1
+// mixed additions; a prefix is converted out only where it is stored.
+//
+// Without digits every prefix is stored.  With the row's sorted digits a
+// prefix is stored only where the next pair of the row has another digit,
+// and at the row's end: the slots a bucket extraction reads.  A prefix is
+// stored one step late, when the next pair's digit is known.
+// ---------------------------------------------------------------------------
+
+struct MaddRun {
+  Pt acc;
+  int32_t digit;
+};
+
+H2T_HD MaddRun madd_run_begin(const uint32_t* xy, int32_t digit) {
+  MaddRun run;
+  run.acc.x = to_mont<FQ>(load_fe_v(xy));
+  run.acc.y = to_mont<FQ>(load_fe_v(xy + 8));
+  run.acc.z = fq_one_mont();
+  run.digit = digit;
+  return run;
+}
+
+// Pair j of the row: store prefix j - 1 at `prev_dst` if it is wanted, then
+// add the pair's point.
+H2T_HD void madd_run_step(MaddRun& run, const uint32_t* xy, int32_t digit,
+                          bool dense, uint32_t* prev_dst) {
+  if (dense || digit != run.digit) store_pt_v(prev_dst, pt_from_mont(run.acc));
+  Fe x = to_mont<FQ>(load_fe_v(xy)), y = to_mont<FQ>(load_fe_v(xy + 8));
+  run.acc = point_madd_mont(run.acc, x, y);
+  run.digit = digit;
+}
+
+H2T_HD void madd_run_end(const MaddRun& run, uint32_t* last_dst) {
+  store_pt_v(last_dst, pt_from_mont(run.acc));
+}
+
+// `digits` may be null: every prefix is stored.
+H2T_HD void scan_madd_row(const uint32_t* src, const int32_t* digits,
+                          uint32_t* dst, int C) {
+  const bool dense = digits == nullptr;
+  MaddRun run = madd_run_begin(src, dense ? 0 : digits[0]);
+#pragma unroll 1
+  for (int j = 1; j < C; ++j)
+    madd_run_step(run, src + 16 * j, dense ? 0 : digits[j], dense,
+                  dst + 24 * (j - 1));
+  madd_run_end(run, dst + 24 * (C - 1));
 }
 
 }  // namespace bn254

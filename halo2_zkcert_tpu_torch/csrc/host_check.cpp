@@ -1,6 +1,10 @@
 // Host build of bn254.cuh for the CPU tests only: the kernels' own field,
 // group-law and tape arithmetic, compiled with g++ and driven through ctypes
 // (tests/test_torch_csrc_host.py).  Never on the main path.
+#include <algorithm>
+#include <cstring>
+#include <vector>
+
 #include "bn254.cuh"
 
 using namespace bn254;
@@ -55,10 +59,51 @@ extern "C" void hc_point_add_mixed(const uint32_t* P, const uint32_t* Q,
                                        load_fe(Q + 16 * i + 8)));
 }
 
-extern "C" void hc_scan_madd(const uint32_t* xy, uint32_t* out, long long R,
-                             int C) {
+// digits may be null: every prefix is written.
+extern "C" void hc_scan_madd(const uint32_t* xy, const int32_t* digits,
+                             uint32_t* out, long long R, int C) {
   for (long long r = 0; r < R; ++r)
-    scan_madd_row(xy + r * C * 16, out + r * C * 24, C);
+    scan_madd_row(xy + r * C * 16, digits ? digits + r * C : nullptr,
+                  out + r * C * 24, C);
+}
+
+// The blocked point scan as point_scan.cu lays it out, on the host: each row
+// (mirrored when `reverse`) is cut into runs of `run` points, every run goes
+// through scan_run_local, the run totals are summed in order, and every run
+// through scan_run_apply with the sum of the runs before it.
+extern "C" void hc_point_scan(const uint32_t* P, uint32_t* out, long long B,
+                              long long n, int run, int reverse) {
+  std::vector<uint32_t> tile(24 * n);
+  for (long long b = 0; b < B; ++b) {
+    for (long long l = 0; l < n; ++l)
+      std::memcpy(&tile[24 * l],
+                  P + (b * n + (reverse ? n - 1 - l : l)) * 24, 96);
+    std::vector<Pt> totals;
+    for (long long s = 0; s < n; s += run)
+      totals.push_back(scan_run_local(&tile[24 * s],
+                                      (int)std::min<long long>(run, n - s)));
+    Pt off = pt_identity_mont();
+    for (long long s = 0, i = 0; s < n; s += run, ++i) {
+      scan_run_apply(&tile[24 * s], (int)std::min<long long>(run, n - s), off);
+      off = point_add_mont(off, totals[i]);
+    }
+    for (long long l = 0; l < n; ++l)
+      std::memcpy(out + (b * n + (reverse ? n - 1 - l : l)) * 24,
+                  &tile[24 * l], 96);
+  }
+}
+
+// Row sums as k_point_reduce takes them: `lanes` strided partial sums a row
+// (point_sum_strided), then their sum.
+extern "C" void hc_point_row_sum(const uint32_t* P, uint32_t* out, long long B,
+                                 long long n, int lanes) {
+  for (long long b = 0; b < B; ++b) {
+    Pt acc = pt_identity_mont();
+    for (int t = 0; t < lanes; ++t)
+      acc = point_add_mont(acc, point_sum_strided(
+          P + (b * n + t) * 24, 24LL * lanes, (n - t + lanes - 1) / lanes));
+    stp(out + 24 * b, pt_from_mont(acc));
+  }
 }
 
 extern "C" void hc_quotient_forest(const uint32_t* leaves, long long n_rows,

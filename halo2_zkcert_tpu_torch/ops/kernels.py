@@ -26,8 +26,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 HEADERS = ("bn254.cuh",)
 SOURCES = {
+    "cios_rate": "cios_rate.cu",
     "field_binop": "field_binop.cu",
     "point_ops": "point_ops.cu",
+    "point_scan": "point_scan.cu",
     "quotient_forest": "quotient_forest.cu",
     "scan_madd": "scan_madd.cu",
 }
@@ -39,11 +41,14 @@ _libs: dict = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
+    "h2t_cios_rate": [_P, _P, _I, _I, _I, _I, _P],
     "h2t_field_binop": [_I, _I, _P, _P, _P, _L, _L, _P],
     "h2t_point_add": [_P, _P, _P, _L, _P],
     "h2t_point_double": [_P, _P, _L, _P],
     "h2t_point_add_mixed": [_P, _P, _P, _L, _P],
-    "h2t_scan_madd": [_P, _P, _L, _I, _P],
+    "h2t_point_scan": [_P, _L, _P, _P, _L, _L, _L, _I, _P],
+    "h2t_point_reduce": [_P, _L, _P, _L, _L, _L, _I, _P],
+    "h2t_scan_madd": [_P, _P, _P, _L, _I, _P],
     "h2t_quotient_forest": [_P, _L, _P, _P, _I, _I, _P, _P],
 }
 

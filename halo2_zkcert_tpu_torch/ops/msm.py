@@ -3,34 +3,20 @@ columns.
 
 Counterpart of halo2_zkcert_tpu/ops/msm.py, same data flow: 8-bit windows
 (the scalar bytes), per window the points sorted by digit, an inclusive
-group-law prefix scan over the sorted points (K2, one launch per level for
-all windows and columns at once), bucket sums as differences of the scan at
-segment ends, the running-suffix combine sum_d d * B_d (log-depth: a suffix
-scan and a tree sum), and Horner over the windows with 8 doublings (K3) per
-step.  Only the resulting point has to equal the reference's.
+group-law prefix scan over the sorted points (ops/scan.point_scan, all
+windows and columns at once), bucket sums as differences of the scan at
+segment ends, the running-suffix combine sum_d d * B_d (a reverse scan and a
+row sum), and Horner over the windows with 8 doublings (K3) per step.  Only
+the resulting point has to equal the reference's.
 """
 from __future__ import annotations
 
 import torch
 
-from . import curve
-from .frops import hillis_steele
+from . import curve, scan
 
 NWINDOWS = 32
 NBUCKETS = 256
-
-
-def _add_pairs(x, y):
-    return (curve.add(x[0], y[0]),)
-
-
-def _tree_sum_points(P: torch.Tensor) -> torch.Tensor:
-    """(B, k, 3, 8) -> (B, 3, 8) group sums, pairwise halving."""
-    while P.shape[1] > 1:
-        if P.shape[1] % 2:
-            P = torch.cat((P, curve.identity((P.shape[0], 1), P.device)), 1)
-        P = curve.add(P[:, 0::2].contiguous(), P[:, 1::2].contiguous())
-    return P[:, 0]
 
 
 def msm_many(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
@@ -44,7 +30,7 @@ def msm_many(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor
         m * NWINDOWS, n)                                    # (B, n)
     dsort, order = torch.sort(digits, dim=1)
     psort = pts[order]                                      # (B, n, 3, 8)
-    prefix = hillis_steele((psort,), _add_pairs)[0]
+    prefix = scan.point_scan(psort)
 
     # bucket d = prefix[last index with digit <= d] - prefix[last with < d]
     ends = torch.searchsorted(
@@ -64,9 +50,8 @@ def msm_many(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor
     bucket = bucket.reshape(B, NBUCKETS, 3, 8)
 
     # sum_{d>=1} d * B_d = sum_{d>=1} S_d with S_d = sum_{j>=d} B_j
-    rev = bucket[:, 1:].flip(1).contiguous()                # B_255 .. B_1
-    suffix = hillis_steele((rev,), _add_pairs)[0]
-    window_sums = _tree_sum_points(suffix).reshape(m, NWINDOWS, 3, 8)
+    suffix = scan.point_scan(bucket[:, 1:], reverse=True)   # bucket 0 dropped
+    window_sums = scan.point_row_sum(suffix).reshape(m, NWINDOWS, 3, 8)
 
     acc = window_sums[:, NWINDOWS - 1].contiguous()
     for w in range(NWINDOWS - 2, -1, -1):

@@ -10,12 +10,14 @@ the nwin * n (digit, table point) pairs:
 
 * sort the pairs of each chunk by digit and gather their table points;
 * local prefix scan of the sorted points under the mixed group law: rows of
-  SCAN_C points through K6 (one thread a row, the running sum in registers)
-  and a small scan of the row totals; any other width level by level, the
-  first level through K5 (ops/scan.py);
+  C points through K6 (one thread a row, the running sum in registers), C
+  picked for each launch so that the rows fill the card, and a scan of the
+  row totals (ops/scan.point_scan); a width that is not whole
+  SCAN_ROW_MAX-point rows level by level, the first level through K5;
 * bucket sums are differences of the prefix at the segment ends, added
   across chunks;
-* sum_d d * B_d = sum_{d >= 1} S_d with S the suffix scan of the buckets.
+* sum_d d * B_d = sum_{d >= 1} S_d with S the suffix scan of the buckets
+  (point_scan from the row's end, then point_row_sum).
 
 Pairs with digit 0 land in bucket 0, which is discarded, so padding pairs
 (digit 0, table row 0) contribute nothing.
@@ -27,7 +29,8 @@ this port's own.
 
 `scan_madd` wraps K6 (csrc/scan_madd.cu, replacing the TPU's
 fused_scan_madd): a CUDA tensor launches the kernel, a CPU tensor runs
-`scan_madd_plain`.
+`scan_madd_plain`.  Given the sorted digits it writes only the prefixes that
+are read afterwards (`scan_madd_defined`).
 """
 from __future__ import annotations
 
@@ -37,17 +40,19 @@ import numpy as np
 import torch
 
 from . import curve, kernels, scan
-from .msm import _tree_sum_points
 
 # flat (window, point) pairs per sort + scan round: one full 2^17-row column
 # at 16-bit windows is one chunk
 CHUNK = 1 << 21
-# points a K6 row scans (a launch argument of the kernel).  Shorter rows put
-# more threads in flight (rows = pairs / SCAN_C, one thread each) but widen
-# the scan of the row totals; 64 is the measured compromise between a group
-# of full columns and a single bounded column (PERF.md, the SCAN_C sweep of
-# `bench.py --sweep-scan-c`)
-SCAN_C = 64
+# points a K6 row scans (a launch argument of the kernel): the longest row,
+# to whose multiple a chunk's pairs are padded, and the shortest.  Shorter
+# rows put more threads in flight (rows = pairs / C, one thread each) but
+# leave more row totals to scan; `scan_row_length` picks between the two from
+# the launch's pair count
+SCAN_ROW_MAX = 64
+SCAN_ROW_MIN = 8
+# rows at which the card counts as full: 132 SMs x 512 threads
+SCAN_ROWS_WANTED = 1 << 16
 # columns per batched sort + scan + extract round
 GROUP = 4
 # bounded-value columns carry about nwin times fewer pairs each
@@ -121,7 +126,7 @@ def load_or_build_tables(base_affine: torch.Tensor, wbits: int,
 
 def scan_madd_plain(xy: torch.Tensor) -> torch.Tensor:
     """Plain version of K6: C - 1 sequential mixed additions over all rows
-    at once.  (R, C, 2, 8) -> (R, C, 3, 8)."""
+    at once.  (R, C, 2, 8) -> (R, C, 3, 8), every slot written."""
     acc = scan.lift_affine(xy[:, 0])
     out = [acc]
     for j in range(1, xy.shape[1]):
@@ -130,10 +135,20 @@ def scan_madd_plain(xy: torch.Tensor) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def scan_madd(xy: torch.Tensor) -> torch.Tensor:
+def scan_madd_defined(dsort: torch.Tensor) -> torch.Tensor:
+    """(R, C) sorted digits -> (R, C) bool: the slots `scan_madd` writes when
+    it is given the digits: a pair that is the last of its digit in the row,
+    and the row's last."""
+    last = torch.ones_like(dsort[:, :1], dtype=torch.bool)
+    return torch.cat((dsort[:, 1:] != dsort[:, :-1], last), dim=1)
+
+
+def scan_madd(xy: torch.Tensor, dsort=None) -> torch.Tensor:
     """Per row, the inclusive prefix sums of C affine points, none the
     identity: (R, C, 2, 8) -> (R, C, 3, 8) projective, prefix 0 being the
-    point itself with Z = 1."""
+    point itself with Z = 1.  With `dsort`, the rows' digits (R, C) int32 in
+    ascending order, only the slots of `scan_madd_defined(dsort)` are
+    defined: the kernel leaves the others unwritten."""
     if xy.device.type == "cpu":
         return scan_madd_plain(xy)
     xy = xy.contiguous()
@@ -143,27 +158,49 @@ def scan_madd(xy: torch.Tensor) -> torch.Tensor:
     R, C = xy.shape[:2]
     out = torch.empty((R, C, 3, 8), dtype=torch.int32, device=xy.device)
     kernels.require_cuda_int32("scan_madd", xy, out)
+    digits = None
+    if dsort is not None:
+        dsort = dsort.contiguous()
+        if dsort.shape != (R, C):
+            raise ValueError(f"scan_madd: expected ({R}, {C}) digits, got "
+                             f"{tuple(dsort.shape)}")
+        kernels.require_cuda_int32("scan_madd", dsort)
+        digits = dsort.data_ptr()
     lib = kernels.lib("scan_madd")
     kernels.launches["scan_madd"] += 1
-    kernels.check(lib.h2t_scan_madd(xy.data_ptr(), out.data_ptr(), R, C,
-                                    kernels.stream_ptr(xy.device)),
+    kernels.check(lib.h2t_scan_madd(xy.data_ptr(), digits, out.data_ptr(), R,
+                                    C, kernels.stream_ptr(xy.device)),
                   "scan_madd")
     return out
 
 
-def _scan_local(pts_sorted: torch.Tensor):
-    """Local scan of sorted table points (B, chunk, 2, 8) -> (local, off, C)
-    with the contract of scan.prefix_scan_batched_local.  A chunk of whole
-    SCAN_C rows goes through K6 and a scan of the row totals; any other
-    width through the level-by-level scan."""
+def scan_row_length(pairs: int) -> int:
+    """Points a K6 row scans in a launch over `pairs` pairs: the longest
+    power of two from SCAN_ROW_MAX down to SCAN_ROW_MIN that still gives
+    SCAN_ROWS_WANTED rows, else the shortest."""
+    C = SCAN_ROW_MAX
+    while C > SCAN_ROW_MIN and pairs // C < SCAN_ROWS_WANTED:
+        C //= 2
+    return C
+
+
+def _scan_local(pts_sorted: torch.Tensor, dsort: torch.Tensor):
+    """Local scan of sorted table points (B, chunk, 2, 8) with their digits
+    (B, chunk) -> (local, off, C) with the contract of
+    scan.prefix_scan_batched_local, except that `local` is defined only
+    where a pair is the last of its digit or of its row.  A chunk of whole
+    SCAN_ROW_MAX rows goes through K6 at the row length of
+    `scan_row_length` and a scan of the row totals; any other width through
+    the level-by-level scan."""
     B, chunk = pts_sorted.shape[:2]
-    C = SCAN_C
-    if chunk % C or chunk // C < 2:
+    if chunk % SCAN_ROW_MAX or chunk // SCAN_ROW_MAX < 2:
         return scan.prefix_scan_batched_local(pts_sorted)
+    C = scan_row_length(B * chunk)
     R = chunk // C
-    local = scan_madd(pts_sorted.reshape(B * R, C, 2, 8))
+    local = scan_madd(pts_sorted.reshape(B * R, C, 2, 8),
+                      dsort.reshape(B * R, C))
     totals = local.reshape(B, R, C, 3, 8)[:, :, -1]
-    tot_scan = scan.prefix_scan_batched(totals.contiguous())
+    tot_scan = scan.point_scan(totals)
     off = torch.cat((curve.identity((B, 1), local.device), tot_scan[:, :-1]),
                     dim=1)
     return local.reshape(B, chunk, 3, 8), off, C
@@ -213,7 +250,7 @@ def _chunk_buckets(table_flat, digits, rows, wbits: int) -> torch.Tensor:
     pair, both (B, chunk) -> (B, 2^wbits, 3, 8) bucket sums."""
     dsort, order = torch.sort(digits, dim=1)
     rows_sorted = torch.gather(rows, 1, order)
-    local, off, C = _scan_local(table_flat[rows_sorted])
+    local, off, C = _scan_local(table_flat[rows_sorted], dsort)
     return _extract_buckets_batched(local, off, C, dsort, wbits)
 
 
@@ -243,8 +280,8 @@ def _buckets_cols(table_flat, digits_cols, rows_cols, wbits: int):
 def _combine_buckets_cols(buckets: torch.Tensor) -> torch.Tensor:
     """sum_{d >= 1} d * B_d per column, as the sum of the suffix sums
     S_d = sum_{j >= d} B_j: (G, 2^wbits, 3, 8) -> (G, 3, 8)."""
-    rev = buckets[:, 1:].flip(1).contiguous()             # bucket 0 dropped
-    return _tree_sum_points(scan.prefix_scan_batched(rev))
+    suffix = scan.point_scan(buckets[:, 1:], reverse=True)  # bucket 0 dropped
+    return scan.point_row_sum(suffix)
 
 
 class FixedBaseMsm:
@@ -311,8 +348,8 @@ class FixedBaseMsm:
         """(1, T) table indices of a bounded-value column: every row with
         its low `value_windows` windows, the rows >= blind_lo (the blinding
         tail) also with the windows above.  Padded with (digit 0, row 0)
-        pairs to whole SCAN_C rows, so the scan takes K6; returns the rows
-        and the unpadded pair count."""
+        pairs to whole SCAN_ROW_MAX rows, so the scan takes K6; returns the
+        rows and the unpadded pair count."""
         n = self.n
         idx = torch.arange(n, device=device)
         main = [w * n + idx for w in range(value_windows)]
@@ -320,7 +357,8 @@ class FixedBaseMsm:
                  for w in range(value_windows, self.nwin)]
         rows = torch.cat(main + blind)
         total = rows.shape[0]
-        return torch.nn.functional.pad(rows, (0, -total % SCAN_C))[None], total
+        pad = -total % SCAN_ROW_MAX
+        return torch.nn.functional.pad(rows, (0, pad))[None], total
 
     def msm_many_bounded(self, cols: torch.Tensor, value_bits: int,
                          blind_lo: int) -> torch.Tensor:

@@ -1,21 +1,36 @@
-"""Prefix scans of G1 points under the group law, as the fixed-base MSM
-needs them.
+"""Prefix scans and row sums of G1 points under the group law, and the
+kernels point_scan / point_row_sum.
 
-Counterpart of the part of halo2_zkcert_tpu/ops/scan.py that ops/msm_fb.py
-uses.  A local scan returns `(local, offsets, C)`: `local` (B, n, 3, 8) holds
+Counterpart of the part of halo2_zkcert_tpu/ops/scan.py that the MSMs use.
+`point_scan` and `point_row_sum` wrap the kernels of csrc/point_scan.cu, the
+scan form of K2 (the TPU's fused_point_add under a scan): a CUDA tensor
+launches them, two launches a scan or a row sum at most whatever the row
+length, a CPU tensor runs `point_scan_plain` / `point_row_sum_plain`,
+log-depth sweeps over `curve.add`.  The kernels add in another order than
+the plain versions, so the two agree as group elements (compare after
+`curve.to_affine`), not as projective triples.
+
+A local scan returns `(local, offsets, C)`: `local` (B, n, 3, 8) holds
 prefixes local to each C-sized row, `offsets` (B, n / C, 3, 8) the exclusive
 row offsets, and the true prefix at flat index i is
 `offsets[i // C] + local[i]`; a caller that reads the prefix at few positions
-adds the offset there only.  The scans are log-depth Hillis-Steele sweeps
-(ops/frops.hillis_steele), one kernel launch a level for all rows at once;
-the TPU package's sequential grid loop has no counterpart here.
+adds the offset there only.
 """
 from __future__ import annotations
 
 import torch
 
-from . import curve, field
+from . import curve, field, kernels
 from .frops import hillis_steele
+
+# points a block of k_point_scan holds in shared memory (128 threads x 8); the
+# blocks of a launch that fill the card (132 SMs x 2 resident blocks, four
+# times over), beyond which a block takes several tiles instead; and the most
+# blocks a row is cut into, since every block adds up the totals of the blocks
+# before it
+TILE = 1024
+BLOCKS_WANTED = 1024
+MAX_BLOCKS_A_ROW = 1024
 
 
 def _add(x, y):
@@ -34,10 +49,111 @@ def lift_affine(xy: torch.Tensor) -> torch.Tensor:
     return torch.cat((xy, one), dim=-2)
 
 
-def prefix_scan_batched(P: torch.Tensor) -> torch.Tensor:
+# ---------------------------------------------------------------------------
+# point_scan / point_row_sum
+# ---------------------------------------------------------------------------
+
+def point_scan_plain(P: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Plain version of `point_scan`: a Hillis-Steele sweep over the plain
+    addition."""
+    if reverse:
+        return point_scan_plain(P.flip(1)).flip(1)
+    return hillis_steele((P,), lambda x, y: (curve.add_plain(x[0], y[0]),))[0]
+
+
+def point_row_sum_plain(P: torch.Tensor) -> torch.Tensor:
+    """Plain version of `point_row_sum`: pairwise halving."""
+    while P.shape[1] > 1:
+        if P.shape[1] % 2:
+            P = torch.cat((P, curve.identity((P.shape[0], 1), P.device)), 1)
+        P = curve.add_plain(P[:, 0::2], P[:, 1::2])
+    return P[:, 0]
+
+
+def _span(B: int, n: int) -> int:
+    """Points of a row that one block takes: one tile; several where the
+    launch would otherwise have more than BLOCKS_WANTED blocks (a block that
+    walks its tiles in order pays once for the totals before it) or a row
+    more than MAX_BLOCKS_A_ROW."""
+    tiles = -(-n // TILE)
+    return TILE * max(1, B * tiles // BLOCKS_WANTED,
+                      -(-tiles // MAX_BLOCKS_A_ROW))
+
+
+def _rows(name: str, P: torch.Tensor):
+    """Check (B, n, 3, 8) CUDA points; returns the tensor (copied only if
+    its rows are not dense runs of 96-byte points on 16-byte boundaries, so
+    a slice along axis 1 is read in place) and the distance between rows in
+    words."""
+    if P.dim() != 4 or P.shape[-2:] != (3, 8) or 0 in P.shape:
+        raise ValueError(f"{name}: expected nonempty (B, n, 3, 8) points, "
+                         f"got {tuple(P.shape)}")
+    if not P.is_cuda or P.dtype != torch.int32:
+        raise ValueError(f"{name}: expected CUDA int32 words, got "
+                         f"{P.dtype} on {P.device}")
+    B, n = P.shape[:2]
+    dense = (P.stride(3) == 1 and P.stride(2) == 8
+             and (n == 1 or P.stride(1) == 24)
+             and (B == 1 or (P.stride(0) >= 24 * n and P.stride(0) % 4 == 0))
+             and P.data_ptr() % 16 == 0)
+    if not dense:
+        P = P.contiguous()
+    return P, (P.stride(0) if B > 1 else 24 * n)
+
+
+def _reduce(name: str, P: torch.Tensor, row_words: int, span: int,
+            reverse: bool) -> torch.Tensor:
+    """One k_point_reduce launch: (B, n) -> (B, ceil(n / span)) totals."""
+    B, n = P.shape[:2]
+    out = torch.empty((B, -(-n // span), 3, 8), dtype=torch.int32,
+                      device=P.device)
+    kernels.launches[name] += 1
+    kernels.check(kernels.lib("point_scan").h2t_point_reduce(
+        P.data_ptr(), row_words, out.data_ptr(), B, n, span, int(reverse),
+        kernels.stream_ptr(P.device)), name)
+    return out
+
+
+def _scan(P: torch.Tensor, row_words: int, totals, span: int,
+          reverse: bool) -> torch.Tensor:
+    """One k_point_scan launch; `totals` what `_reduce` gives for the same
+    span, or None where a row is one block."""
+    B, n = P.shape[:2]
+    out = torch.empty((B, n, 3, 8), dtype=torch.int32, device=P.device)
+    kernels.launches["point_scan"] += 1
+    kernels.check(kernels.lib("point_scan").h2t_point_scan(
+        P.data_ptr(), row_words, out.data_ptr(),
+        None if totals is None else totals.data_ptr(), B, n, span,
+        int(reverse),
+        kernels.stream_ptr(P.device)), "point_scan")
+    return out
+
+
+def point_scan(P: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """Inclusive prefix sums along axis 1 of projective points
-    (B, n, 3, 8), every row on its own."""
-    return hillis_steele((P,), _add)[0]
+    (B, n, 3, 8), every row on its own; from the row's end with `reverse`
+    (out[:, i] = P[:, i] + ... + P[:, n - 1]).  The identity may stand
+    anywhere.  Only the group element of a result is specified."""
+    if P.device.type == "cpu":
+        return point_scan_plain(P, reverse)
+    P, row_words = _rows("point_scan", P)
+    B, n = P.shape[:2]
+    span = _span(B, n)
+    totals = None if n <= span else _reduce("point_scan", P, row_words, span,
+                                            reverse)
+    return _scan(P, row_words, totals, span, reverse)
+
+
+def point_row_sum(P: torch.Tensor) -> torch.Tensor:
+    """(B, n, 3, 8) -> (B, 3, 8): the group sum of every row."""
+    if P.device.type == "cpu":
+        return point_row_sum_plain(P)
+    P, row_words = _rows("point_row_sum", P)
+    part = _reduce("point_row_sum", P, row_words, _span(*P.shape[:2]), False)
+    if part.shape[1] > 1:
+        part = _reduce("point_row_sum", part, 24 * part.shape[1],
+                       part.shape[1], False)
+    return part[:, 0]
 
 
 def prefix_scan_batched_local(xy: torch.Tensor):

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_zkcert_tpu_torch.ops import curve, field, msm_fb
+from halo2_zkcert_tpu_torch.ops import curve, field, msm_fb, scan
 from halo2_zkcert_tpu_torch.ops.field import FQ, FR
 from halo2_zkcert_tpu_torch.plonk import quotient
 from halo2_zkcert_tpu_torch.plonk.cs import ConstraintSystem
@@ -40,7 +40,9 @@ def hc(tmp_path_factory):
     lib.hc_point_add.argtypes = [P, P, P, L]
     lib.hc_point_double.argtypes = [P, P, L]
     lib.hc_point_add_mixed.argtypes = [P, P, P, L]
-    lib.hc_scan_madd.argtypes = [P, P, L, ctypes.c_int]
+    lib.hc_scan_madd.argtypes = [P, P, P, L, ctypes.c_int]
+    lib.hc_point_scan.argtypes = [P, P, L, L, ctypes.c_int, ctypes.c_int]
+    lib.hc_point_row_sum.argtypes = [P, P, L, L, ctypes.c_int]
     lib.hc_quotient_forest.argtypes = [P, L, P, P, ctypes.c_int, ctypes.c_int,
                                        P]
     return lib
@@ -125,10 +127,86 @@ def test_scan_madd_host(hc, C):
     pts[C:2 * C] = [pts[C]] * C
     xy = curve.points_to_device(pts, "cpu").reshape(R, C, 2, 8).contiguous()
     out = torch.empty((R, C, 3, 8), dtype=torch.int32)
-    hc.hc_scan_madd(_ptr(xy), _ptr(out), R, C)
+    hc.hc_scan_madd(_ptr(xy), None, _ptr(out), R, C)
     assert torch.equal(out, msm_fb.scan_madd_plain(xy))
     assert curve.points_from_device(curve.to_affine(out[:, -1])) == [
         rc.g1_msm(pts[r * C:(r + 1) * C], [1] * C) for r in range(R)]
+
+
+@pytest.mark.parametrize("C", [1, 5, 64])
+def test_scan_madd_host_writes_the_defined_slots_only(hc, C):
+    """With the rows' sorted digits the row function writes a prefix where
+    the next pair has another digit and at the row's end, equal to the plain
+    version's there, and leaves every other slot as it found it."""
+    R = 4
+    pts = _points(17 + C, R * C)
+    xy = curve.points_to_device(pts, "cpu").reshape(R, C, 2, 8).contiguous()
+    rng = np.random.default_rng(C)
+    dsort = torch.from_numpy(np.sort(rng.integers(0, 6, size=(R, C)), axis=1)
+                             .astype(np.int32))
+    dsort[1] = 3                       # one digit: only the row's end
+    dsort[2] = torch.arange(C)         # all different: every slot
+    mask = msm_fb.scan_madd_defined(dsort)
+    assert mask[1].sum() == 1 and mask[2].all() and mask[:, -1].all()
+    out = torch.full((R, C, 3, 8), -7, dtype=torch.int32)
+    hc.hc_scan_madd(_ptr(xy), _ptr(dsort), _ptr(out), R, C)
+    assert torch.equal(out[mask], msm_fb.scan_madd_plain(xy)[mask])
+    assert (out[~mask] == -7).all()
+
+
+def _projective_rows(seed, B, n):
+    """(B, n, 3, 8) projective points with random Z: a few multiples of G,
+    the identity, a run of one repeated point and a point next to its
+    inverse; and the same rows as affine oracle points."""
+    rng = np.random.default_rng(seed)
+    base = _points(seed, 5)
+    base.append(rc.g1_to_affine(rc.g1_neg(rc.g1_from_affine(base[0]))))
+    base.append((0, 0))
+    pick = rng.integers(0, len(base), size=(B, n))
+    if n >= 31:
+        pick[:, 2:8] = 1
+        pick[:, 9:11] = (0, 5)
+        pick[:, 11] = pick[0, 0] = pick[1, -1] = 6
+    flat = []
+    for i in pick.reshape(-1):
+        z = int.from_bytes(rng.bytes(32), "little") % (rc.FQ - 1) + 1
+        x, y = base[i]
+        flat += [0, z, 0] if base[i] == (0, 0) else [x * z % rc.FQ,
+                                                     y * z % rc.FQ, z]
+    rows = [[base[i] for i in row] for row in pick]
+    return field.from_ints(FQ, flat, "cpu").reshape(B, n, 3, 8), rows
+
+
+def _affine_list(P_):
+    return curve.points_from_device(curve.to_affine(P_).reshape(-1, 2, 8))
+
+
+@pytest.mark.parametrize("reverse", [0, 1], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n,run", [(1, 8), (2, 8), (31, 8), (255, 8),
+                                   (1000, 8), (255, 3)])
+def test_point_scan_host(hc, n, run, reverse):
+    """The blocked scan's run routines (scan_run_local, scan_run_apply) laid
+    out as the kernel lays them out: equal to the plain version as affine
+    points, and the row's last prefix to the oracle's sum of the row."""
+    P_, rows = _projective_rows(40 + n, 2, n)
+    out = torch.empty_like(P_)
+    hc.hc_point_scan(_ptr(P_), _ptr(out), 2, n, run, reverse)
+    assert _affine_list(out) == _affine_list(
+        scan.point_scan_plain(P_, bool(reverse)))
+    total = out[:, 0] if reverse else out[:, -1]
+    assert _affine_list(total) == [rc.g1_msm(r, [1] * n) for r in rows]
+
+
+@pytest.mark.parametrize("n,lanes", [(1, 128), (31, 128), (255, 128),
+                                     (1000, 128), (1000, 7)])
+def test_point_row_sum_host(hc, n, lanes):
+    """The reduce half (point_sum_strided over `lanes` strided partial
+    sums): equal to the plain version and to the oracle as affine points."""
+    P_, rows = _projective_rows(60 + n, 2, n)
+    out = torch.empty((2, 3, 8), dtype=torch.int32)
+    hc.hc_point_row_sum(_ptr(P_), _ptr(out), 2, n, lanes)
+    assert _affine_list(out) == _affine_list(scan.point_row_sum_plain(P_))
+    assert _affine_list(out) == [rc.g1_msm(r, [1] * n) for r in rows]
 
 
 def _toy_cs():

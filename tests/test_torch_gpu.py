@@ -1,4 +1,5 @@
-"""Kernels K1-K6 on the card against their plain versions, at small shapes.
+"""Kernels K1-K6 and the blocked point scan on the card against their plain
+versions, at small, ragged and main-path shapes.
 
 Marked `gpu`: each test decides inside itself whether a CUDA device exists
 and skips without one.  On a machine with a card:
@@ -9,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_zkcert_tpu_torch.ops import curve, field, kernels, msm_fb
+from halo2_zkcert_tpu_torch.ops import curve, field, kernels, msm_fb, scan
 from halo2_zkcert_tpu_torch.ops.field import FQ, FR
 from halo2_zkcert_tpu_torch.plonk import quotient
 from halo2_zkcert_tpu_torch.utils import refcrypto as rc
@@ -79,26 +80,106 @@ def test_point_add_mixed_kernel():
     assert torch.equal(got, curve.add_plain(P, curve.from_affine(Q)))
 
 
-@pytest.mark.parametrize("R,C", [(5, 64), (300, 7), (2, 1)])
-def test_scan_madd_kernel(R, C):
+@pytest.mark.parametrize("digits", [False, True], ids=["dense", "digits"])
+@pytest.mark.parametrize("R,C", [(5, 64), (300, 7), (2, 1), (129, 2),
+                                 (16400, 8)])
+def test_scan_madd_kernel(R, C, digits):
     """K6 against its plain version, C a launch argument; one row repeats a
-    point, so the scan doubles inside."""
+    point, so the scan doubles inside.  With the rows' sorted digits only
+    the slots of `scan_madd_defined` are compared."""
     dev = _device()
     base = _multiples(97, dev)
-    idx = torch.from_numpy(np.random.default_rng(R).integers(
-        0, 97, size=(R, C))).to(dev)
+    rng = np.random.default_rng(R)
+    idx = torch.from_numpy(rng.integers(0, 97, size=(R, C))).to(dev)
     idx[0] = 3
     xy = base[idx]
+    dsort = None
+    if digits:
+        dsort = torch.from_numpy(np.sort(rng.integers(
+            0, max(2, R * C // 3), size=R * C)).astype(np.int32)
+            .reshape(R, C)).to(dev)
     before = kernels.launches["scan_madd"]
-    got = msm_fb.scan_madd(xy)
+    got = msm_fb.scan_madd(xy, dsort)
     assert kernels.launches["scan_madd"] == before + 1
-    assert torch.equal(got, msm_fb.scan_madd_plain(xy))
+    want = msm_fb.scan_madd_plain(xy)
+    if digits:
+        mask = msm_fb.scan_madd_defined(dsort)
+        got, want = got[mask], want[mask]
+    assert torch.equal(got, want)
+
+
+def _projective_rows(seed, B, n, dev):
+    """(B, n, 3, 8): multiples of G with random Z, a third identities, a run
+    of one repeated point and a point next to its inverse."""
+    rng = np.random.default_rng(seed)
+    P = curve.from_affine(_multiples(33, dev))
+    P = torch.cat((P, curve.neg(P[:1]), curve.identity((16,), dev)))
+    pick = rng.integers(0, P.shape[0], size=(B, n))
+    if n >= 31:
+        pick[:, 2:8] = 1
+        pick[:, 9:11] = (0, 33)
+    z = _rand(FQ, seed + 1, 64, dev)[3:]               # nonzero
+    zi = torch.from_numpy(rng.integers(0, z.shape[0], size=(B, n))).to(dev)
+    P = P[torch.from_numpy(pick).to(dev)]
+    return field.binop_plain(FQ, "mul", P, z[zi][:, :, None, :]).contiguous()
+
+
+SCAN_SHAPES = [(3, 1), (2, 2), (2, 255), (5, 1000), (2, 1024), (2, 1025),
+               (3, 5001), (4, 65535), (1, (1 << 17) + 3)]
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("B,n", SCAN_SHAPES)
+def test_point_scan_kernel(B, n, reverse):
+    """The blocked scan against its plain version as affine points; one
+    launch for a row of one tile, two for any longer one."""
+    dev = _device()
+    P = _projective_rows(n, B, n, dev)
+    before = kernels.launches["point_scan"]
+    got = scan.point_scan(P, reverse=reverse)
+    assert kernels.launches["point_scan"] - before == (1 if n <= scan.TILE
+                                                       else 2)
+    want = scan.point_scan_plain(P, reverse)
+    assert torch.equal(curve.to_affine(got), curve.to_affine(want))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("limit,blocks", [("MAX_BLOCKS_A_ROW", 2),
+                                          ("BLOCKS_WANTED", 4)])
+def test_point_scan_kernel_spans_of_several_tiles(monkeypatch, limit, blocks,
+                                                  reverse):
+    """Rows whose blocks walk several tiles and carry their running sum
+    (forced by lowering either limit on the number of blocks: two blocks of
+    three and two tiles, or three of two, two and one), read in place from
+    a slice that drops the first point."""
+    dev = _device()
+    monkeypatch.setattr(scan, limit, blocks)
+    P = _projective_rows(9, 2, 5002, dev)[:, 1:]
+    assert scan._span(2, 5001) == (3 if blocks == 2 else 2) * scan.TILE
+    assert not P.is_contiguous()
+    got = scan.point_scan(P, reverse=reverse)
+    want = scan.point_scan_plain(P.contiguous(), reverse)
+    assert torch.equal(curve.to_affine(got), curve.to_affine(want))
+    assert torch.equal(curve.to_affine(scan.point_row_sum(P)),
+                       curve.to_affine(scan.point_row_sum_plain(P)))
+
+
+@pytest.mark.parametrize("B,n", SCAN_SHAPES)
+def test_point_row_sum_kernel(B, n):
+    dev = _device()
+    P = _projective_rows(n + 1, B, n, dev)
+    before = kernels.launches["point_row_sum"]
+    got = scan.point_row_sum(P)
+    assert kernels.launches["point_row_sum"] - before == (1 if n <= scan.TILE
+                                                          else 2)
+    assert torch.equal(curve.to_affine(got),
+                       curve.to_affine(scan.point_row_sum_plain(P)))
 
 
 def test_fixed_base_msm_on_card():
-    """Both scan branches of the fixed-base MSM on the card (whole SCAN_C
-    rows through K6, a ragged width through K5) against the variable-base
-    MSM of the same points and scalars."""
+    """Both scan branches of the fixed-base MSM on the card (whole
+    SCAN_ROW_MAX rows through K6, a ragged width through K5) against the
+    variable-base MSM of the same points and scalars."""
     dev = _device()
     from halo2_zkcert_tpu_torch.ops import msm
     for n in (64, 37):

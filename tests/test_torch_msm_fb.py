@@ -151,25 +151,86 @@ def test_scan_madd_matches_chained_oracle_adds(scanned):
     assert _affine(got[0]) == want
 
 
-def test_local_scan_contract_on_both_branches(scanned):
-    """offsets[i // C] + local[i] is the true prefix: rows of SCAN_C through
-    scan_madd with row totals, a ragged width level by level with the mixed
-    addition first."""
+def test_scan_madd_defined_slots_match_pallas_interpret(ref, scanned):
+    """Given the rows' sorted digits, the slots the contract defines (a pair
+    that is the last of its digit in the row, and the row's last) equal
+    fused_scan_madd's prefixes; the others are not looked at."""
     xy, _ = scanned
-    flat = xy.reshape(1, -1, 2, 8)
-    pts = curve.points_from_device(flat[0])
+    rng = np.random.default_rng(6)
+    dsort = torch.from_numpy(np.sort(rng.integers(0, 9, size=(3, 64)),
+                                     axis=1).astype(np.int32))
+    dsort[1] = 4                                        # one digit a row
+    mask = msm_fb.scan_madd_defined(dsort)
+    assert mask[:, -1].all() and mask[1].sum() == 1
+    assert mask.sum() == sum(len(set(r.tolist())) for r in dsort)
+    got = msm_fb.scan_madd(xy, dsort)
+    want = _resident(ref["scan_pallas"]).permute(1, 2, 0, 3)   # (R, C, 3, 8)
+    assert torch.equal(got[mask], want[mask])
+
+
+def _chained(flat):
     acc, want = (0, 0), []
-    for p in pts:
+    for p in curve.points_from_device(flat):
         acc = _oracle_add(acc, p)
         want.append(acc)
+    return want
+
+
+def test_local_scan_contract_on_both_branches(scanned):
+    """offsets[i // C] + local[i] is the true prefix: whole SCAN_ROW_MAX rows
+    through scan_madd at the row length picked for the launch, with row
+    totals; a ragged width level by level with the mixed addition first."""
+    xy, _ = scanned
+    flat = xy.reshape(1, -1, 2, 8)
+    want = _chained(flat[0])
+    dsort = (torch.arange(192, dtype=torch.int32) // 5)[None]
     for width in (192, 70):
-        local, off, C = msm_fb._scan_local(flat[:, :width])
-        assert C == (64 if width == 192 else width)
+        local, off, C = msm_fb._scan_local(flat[:, :width], dsort[:, :width])
+        assert C == (msm_fb.scan_row_length(192) if width == 192 else width)
         assert off.shape == (1, width // C, 3, 8)
         full = curve.add(off[0].repeat_interleave(C, dim=0), local[0])
         assert _affine(full) == want[:width]
-    full = scan.prefix_scan_batched(scan.lift_affine(flat[:, :70]))
+    full = scan.point_scan(scan.lift_affine(flat[:, :70]))
     assert _affine(full[0]) == want[:70]
+
+
+def test_scan_row_length_follows_the_pair_count():
+    """Long rows when the pairs alone fill the card, shorter ones down to
+    SCAN_ROW_MIN when they do not; always a divisor of SCAN_ROW_MAX."""
+    lo, hi, rows = (msm_fb.SCAN_ROW_MIN, msm_fb.SCAN_ROW_MAX,
+                    msm_fb.SCAN_ROWS_WANTED)
+    assert msm_fb.scan_row_length(4 << 21) == hi
+    assert msm_fb.scan_row_length(hi * rows) == hi
+    assert msm_fb.scan_row_length(hi * rows - 1) == hi // 2
+    assert msm_fb.scan_row_length(192) == lo
+    for pairs in (1, 1 << 17, (1 << 17) + 64, 1 << 21, 1 << 23):
+        C = msm_fb.scan_row_length(pairs)
+        assert lo <= C <= hi and hi % C == 0
+
+
+@pytest.mark.parametrize("C", [8, 16, 32, 64])
+def test_scan_local_row_lengths_give_the_same_buckets(fbs, monkeypatch, C):
+    """One sort + scan + extract round with each row length the launch may
+    pick: the bucket sums equal the oracle's sums of each digit's table
+    points."""
+    fb = fbs["fb16"]
+    table = curve.points_from_device(fb.table_flat)
+    rng = np.random.default_rng(8)
+    digits = torch.from_numpy(rng.integers(0, 256, size=(2, 128))
+                              .astype(np.int32))
+    digits[1, :40] = 7                                  # one crowded bucket
+    rows = torch.from_numpy(rng.integers(0, len(table), size=(2, 128)))
+    seen = []
+    monkeypatch.setattr(msm_fb, "scan_row_length",
+                        lambda pairs: seen.append(pairs) or C)
+    got = _affine(msm_fb._chunk_buckets(fb.table_flat, digits, rows, 8))
+    assert seen == [256]
+    for b in range(2):
+        want = [rc.g1_from_affine((0, 0))] * 256
+        for d, r in zip(digits[b].tolist(), rows[b].tolist()):
+            want[d] = rc.g1_add(want[d], rc.g1_from_affine(table[r]))
+        assert got[256 * b:256 * (b + 1)] == [rc.g1_to_affine(w)
+                                              for w in want]
 
 
 # ---------------------------------------------------------------------------
@@ -273,7 +334,7 @@ def test_streamed_path_matches_jax_and_oracle(ref, fbs, monkeypatch):
 
 
 def test_ragged_pair_count_takes_the_mixed_add_branch(ref, fbs, monkeypatch):
-    """5 points x 32 windows = 160 pairs, not whole SCAN_C rows."""
+    """5 points x 32 windows = 160 pairs, not whole SCAN_ROW_MAX rows."""
     calls = []
     real = curve.add_mixed
     monkeypatch.setattr(curve, "add_mixed",
