@@ -6,12 +6,16 @@ Phases, each printing its own line:
   1. build the hand-written kernels (csrc/*.cu, one nvcc per source, in
      parallel) and print the card's name and power limit;
   2. hold each kernel against its plain PyTorch version on the card at the
-     shapes of the main path, and time both.  The elementwise kernels, the
-     quotient and the mixed-add row scan give their plain version's words
-     exactly (with digits, in the slots the scan's contract defines); the
-     blocked point scan and row sum add in another order than their plain
-     versions, so they are compared after curve.to_affine, exactly
-     (canonical affine words are unique);
+     shapes of the main path, and time both: the kernel's device time with
+     its launches queued behind a spin of the device (`kernel_ms`; "ms" in
+     the record) beside its time as Python issues it ("issued_ms"), the
+     plain version as issued.  The elementwise kernels, the
+     transform passes, the blocked scans and row sums of field elements, the
+     quotient (Montgomery form in and out) and the mixed-add row scan give
+     their plain version's words exactly (with digits, in the slots the
+     scan's contract defines); the blocked point scan and row sum add in
+     another order than their plain versions, so they are compared after
+     curve.to_affine, exactly (canonical affine words are unique);
   3. build the k=17 SRS on the card from the default tau and the fixed-base
      window tables of both bases; commit the committed RSA proving key's 12
      fixed and 3 sigma columns through the variable-base and through the
@@ -25,9 +29,11 @@ Phases, each printing its own line:
      rejected, and the bytes must equal build/rsa_1.proof;
   5. the kernels' launch counts on each driven path: every kernel must have
      been launched on one of them, and the fixed-base proof must launch
-     point_add, point_scan and point_row_sum under 100 times together (its
-     scans are blocked kernels, not a launch a level).  The [shapes] lines
-     give the shapes the point kernels were called with on each proof.
+     point_add, point_scan and point_row_sum under 100 times together,
+     field_binop under 300 times and ntt at most 8 times (its scans and
+     transforms are blocked kernels, not a launch a level or a stage).  The
+     [shapes] lines give the shapes the point kernels, the transforms and
+     the field scans were called with on each proof.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -85,6 +91,33 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def kernel_ms(fn, iters: int, warmup: int = 2) -> tuple:
+    """(device ms, issued ms) of one fn(), a kernel's wrapper.
+
+    Issued: the calls as Python issues them (`cuda_ms`).  A wrapper call
+    costs the host some tens of microseconds, so for a kernel that runs
+    shorter than that the issued time is the host's, not the card's.
+    Device: the same loop issued while the device spins
+    (`torch.cuda._sleep`) for as long as the host took to issue it, so every
+    launch is queued before the first runs and they run back to back."""
+    issued = cuda_ms(fn, iters, warmup)
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    hz = torch.cuda.get_device_properties(0).clock_rate * 1e3
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((1.5 * host_s + 1e-3) * hz))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters, issued
+
+
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     """Largest difference of two word tensors, words read as uint32."""
     d = (a.to(torch.int64) & 0xFFFFFFFF) - (b.to(torch.int64) & 0xFFFFFFFF)
@@ -108,14 +141,16 @@ def random_canonical(rng: np.random.Generator, count: int, device,
 
 def _record(name, source, replaces, err, ms, plain_ms, bytes_moved, ops,
             counter=None):
-    """`counter`: the key of ops/kernels.launches that the record's wrapper
-    counts under, where several records (shapes, options) share one."""
+    """`ms`: the pair `kernel_ms` gives.  `counter`: the key of
+    ops/kernels.launches that the record's wrapper counts under, where
+    several records (shapes, options) share one."""
+    ms, issued_ms = ms
     bound_b = bytes_moved / HBM_BYTES_PER_S * 1e3
     bound_o = ops / OPS_PER_S * 1e3
     return {"name": name, "counter": counter or name, "route": "cuda",
             "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "issued_ms": issued_ms, "plain_ms": plain_ms,
             "bound_ms": max(bound_b, bound_o),
             "bound_by": "bytes" if bound_b >= bound_o else "operations",
             "library_ms": None}
@@ -127,11 +162,12 @@ def check_field(device, n: int, rng) -> list:
     recs = []
     replaces = {"mul": "halo2_zkcert_tpu/ops/pallas_limbs.py:435",
                 "add": "halo2_zkcert_tpu/ops/pallas_limbs.py:441",
-                "sub": "halo2_zkcert_tpu/ops/pallas_limbs.py:446"}
+                "sub": "halo2_zkcert_tpu/ops/pallas_limbs.py:446",
+                "mulm": "halo2_zkcert_tpu/ops/pallas_limbs.py:435"}
     for F in (FR, FQ):
         a = random_canonical(rng, n, device, F.modulus)
         b = random_canonical(rng, n, device, F.modulus).flip(0).contiguous()
-        for op in ("mul", "add", "sub"):
+        for op in ("mul", "add", "sub", "mulm"):
             got = field.binop(F, op, a, b)
             want = field.binop_plain(F, op, a, b)
             torch.cuda.synchronize()
@@ -144,12 +180,98 @@ def check_field(device, n: int, rng) -> list:
                                      f"with its plain version (err {err})")
             if F is not FR:
                 continue
-            ms = cuda_ms(lambda: field.binop(F, op, a, b), 20)
+            ms = kernel_ms(lambda: field.binop(F, op, a, b), 20)
             plain_ms = cuda_ms(lambda: field.binop_plain(F, op, a, b), 2, 1)
             recs.append(_record(
                 f"field_binop.{op}", "halo2_zkcert_tpu_torch/csrc/field_binop.cu",
                 replaces[op], err, ms, plain_ms, 3 * 32 * n,
-                OPS_PER_MUL * n if op == "mul" else 0))
+                OPS_PER_MUL * n if op in ("mul", "mulm") else 0))
+    return recs
+
+
+def _exact(name, kern, plain):
+    """Run both, compare word for word; the largest word difference."""
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    ok = torch.equal(got, want)
+    log(f"[kernels] {name}: {'exact' if ok else 'MISMATCH'}")
+    if not ok:
+        raise AssertionError(f"{name} disagrees with its plain version "
+                             f"(err {max_abs_err(got, want)})")
+    return max_abs_err(got, want)
+
+
+def check_ntt(device, k: int, cols: int, rng) -> list:
+    """The transforms of one proof at their shapes: the inverse transform of
+    `cols` fresh columns at 2^k, their coset transform onto the extended
+    domain 2^(k+2) from 2^k coefficients, Montgomery form out, and the
+    inverse coset transform of one Montgomery-form column there.  A
+    transform is k / 2 products an element whatever implements it."""
+    from halo2_zkcert_tpu_torch.ops import ntt
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    n, ek, g = 1 << k, k + 2, rc.FR_GENERATOR
+    a = random_canonical(rng, cols * n, device, FR.modulus).reshape(cols, n, 8)
+    h = random_canonical(rng, 1 << ek, device, FR.modulus)[None]
+    cases = (
+        (f"ntt.inverse[{cols}x{n}]", lambda: ntt.intt(a, k),
+         lambda: ntt.intt_plain(a, k), k, cols, n, n),
+        (f"ntt.coset.mont[{cols}x{n}->{1 << ek}]",
+         lambda: ntt.coset_ntt(a, ek, g, out_mont=True),
+         lambda: ntt.coset_ntt_plain(a, ek, g, out_mont=True), ek, cols, n,
+         1 << ek),
+        (f"ntt.coset_inverse.mont[1x{1 << ek}]",
+         lambda: ntt.coset_intt(h, ek, g, in_mont=True),
+         lambda: ntt.coset_intt_plain(h, ek, g, in_mont=True), ek, 1, 1 << ek,
+         1 << ek),
+    )
+    recs = []
+    for name, kern, plain, kk, B, n_in, n_out in cases:
+        err = _exact(name, kern, plain)
+        recs.append(_record(
+            name, "halo2_zkcert_tpu_torch/csrc/ntt.cu",
+            "halo2_zkcert_tpu/ops/pallas_limbs.py:435", err, kernel_ms(kern, 10),
+            cuda_ms(plain, 2, 1), 32 * B * (n_in + n_out),
+            OPS_PER_MUL * B * n_out * kk // 2, "ntt"))
+    return recs
+
+
+def check_field_scans(device, n: int, rng) -> list:
+    """The blocked scans and row sums of field elements at the main path's
+    shapes: the grand products of three columns, one row of three columns'
+    length (a batched inversion), a suffix sum, the RSA accumulator's affine
+    recurrence, and the row sums of 16 columns (the evaluations)."""
+    from halo2_zkcert_tpu_torch.ops import frops
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    src = "halo2_zkcert_tpu_torch/csrc/field_scan.cu"
+    mul, add = ("halo2_zkcert_tpu/ops/pallas_limbs.py:435",
+                "halo2_zkcert_tpu/ops/pallas_limbs.py:441")
+    x = random_canonical(rng, 16 * n, device, FR.modulus).reshape(16, n, 8)
+    x[0, :3] = x[0, 3:6]                   # no zero in the product rows
+    a3, row, a1, b1 = x[:3], x[:3].reshape(1, 3 * n, 8), x[3:4], x[4:5]
+    cases = (
+        (f"field_scan.mul[3x{n}]", "field_scan", mul,
+         lambda: frops.field_scan(a3, "mul"),
+         lambda: frops.field_scan_plain(a3, "mul"), 64 * 3 * n, 3 * (n - 1)),
+        (f"field_scan.mul[1x{3 * n}]", "field_scan", mul,
+         lambda: frops.field_scan(row, "mul"),
+         lambda: frops.field_scan_plain(row, "mul"), 64 * 3 * n, 3 * n - 1),
+        (f"field_scan.add.reverse[1x{n}]", "field_scan", add,
+         lambda: frops.field_scan(a1, "add", reverse=True),
+         lambda: frops.field_scan_plain(a1, "add", reverse=True), 64 * n, 0),
+        (f"field_scan.affine[1x{n}]", "field_scan", mul,
+         lambda: frops.field_scan(a1, "affine", b=b1),
+         lambda: frops.field_scan_plain(a1, "affine", b=b1), 96 * n, n - 1),
+        (f"field_row_sum[16x{n}]", "field_row_sum", add,
+         lambda: frops.field_row_sum(x),
+         lambda: frops.tree_sum_batched_plain(x), 32 * 16 * (n + 1), 0),
+    )
+    recs = []
+    for name, counter, replaces, kern, plain, nbytes, products in cases:
+        err = _exact(name, kern, plain)
+        recs.append(_record(name, src, replaces, err, kernel_ms(kern, 10),
+                            cuda_ms(plain, 2, 1), nbytes,
+                            OPS_PER_MUL * products, counter))
     return recs
 
 
@@ -195,7 +317,7 @@ def check_points(device, n: int, rng) -> list:
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         recs.append(_record(name, "halo2_zkcert_tpu_torch/csrc/point_ops.cu",
-                            replaces, err, cuda_ms(kern, 20),
+                            replaces, err, kernel_ms(kern, 20),
                             cuda_ms(plain, 2, 1), bytes_per * n,
                             muls * OPS_PER_MUL * n))
     return recs
@@ -262,7 +384,7 @@ def check_mixed(device, n: int, rows: int, small_pairs: int, rng) -> list:
                f" in the {int(mask.sum())} defined slots"))
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
-        recs.append(_record(name, source, replaces, err, cuda_ms(kern, 10),
+        recs.append(_record(name, source, replaces, err, kernel_ms(kern, 10),
                             cuda_ms(plain, 1, 1), bytes_per * pairs,
                             11 * OPS_PER_MUL * pairs, counter))
     return recs
@@ -304,7 +426,7 @@ def check_scans(device, B: int, n_buckets: int, n_totals: int, rng) -> list:
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version")
         points = X.shape[0] * X.shape[1]
-        recs.append(_record(name, src, replaces, err, cuda_ms(kern, 10),
+        recs.append(_record(name, src, replaces, err, kernel_ms(kern, 10),
                             cuda_ms(plain, 1, 1), bytes_per * points,
                             12 * OPS_PER_MUL * (points - X.shape[0]),
                             counter))
@@ -323,7 +445,7 @@ def check_quotient(device, vk_path: str, rng) -> dict:
     leaves = random_canonical(rng, L * ext_n, device,
                               FR.modulus).reshape(L, ext_n, 8)
     chal = random_canonical(rng, tape.num_challenges, device, FR.modulus)
-    consts = tape.const_table(chal)
+    consts = tape.const_table(chal)       # Montgomery form, as the leaves are
     got = quotient.quotient_forest(leaves, consts, tape)
     want = quotient.quotient_forest_plain(leaves, consts, tape)
     torch.cuda.synchronize()
@@ -338,7 +460,7 @@ def check_quotient(device, vk_path: str, rng) -> dict:
     return _record(
         "quotient_forest", "halo2_zkcert_tpu_torch/csrc/quotient_forest.cu",
         "halo2_zkcert_tpu/plonk/quotient_pallas.py:315", err,
-        cuda_ms(lambda: quotient.quotient_forest(leaves, consts, tape), 10),
+        kernel_ms(lambda: quotient.quotient_forest(leaves, consts, tape), 10),
         cuda_ms(lambda: quotient.quotient_forest_plain(leaves, consts, tape),
                 1, 1),
         (L + 1) * ext_n * 32 + consts.numel() * 4,
@@ -431,27 +553,33 @@ def check_ragged(device, params, n: int) -> dict:
 
 
 class recorded_shapes:
-    """Count, for the block, the shapes that the point kernels' wrappers are
-    called with (`curve.add`, `msm_fb.scan_madd`, `scan.point_scan`,
-    `scan.point_row_sum`): `.shapes` maps "name(shape)" to calls."""
+    """Count, for the block, the shapes that the wrappers of the point
+    kernels (`curve.add`, `msm_fb.scan_madd`, `scan.point_scan`,
+    `scan.point_row_sum`), of the transforms (`ntt.ntt`, ...) and of the
+    field scans (`frops.field_scan`, `frops.field_row_sum`) are called with:
+    `.shapes` maps "name(shape)" to calls."""
 
     def __enter__(self):
         from collections import Counter
-        from halo2_zkcert_tpu_torch.ops import curve, msm_fb, scan
+        from halo2_zkcert_tpu_torch.ops import curve, frops, msm_fb, ntt, scan
         self.shapes = Counter()
-        self.saved = [(curve, "add"), (msm_fb, "scan_madd"),
-                      (scan, "point_scan"), (scan, "point_row_sum")]
-        self.saved = [(m, n, getattr(m, n)) for m, n in self.saved]
-        for mod, name, fn in self.saved:
-            def wrapped(x, *a, _fn=fn, _name=name, **k):
-                lead = "x".join(str(d) for d in x.shape[:-2])
+        # module, function, trailing axes that are not part of the shape
+        self.saved = [(curve, "add", 2), (msm_fb, "scan_madd", 2),
+                      (scan, "point_scan", 2), (scan, "point_row_sum", 2),
+                      (ntt, "ntt", 1), (ntt, "intt", 1), (ntt, "coset_ntt", 1),
+                      (ntt, "coset_intt", 1), (frops, "field_scan", 1),
+                      (frops, "field_row_sum", 1)]
+        self.saved = [(m, n, t, getattr(m, n)) for m, n, t in self.saved]
+        for mod, name, tail, fn in self.saved:
+            def wrapped(x, *a, _fn=fn, _name=name, _tail=tail, **k):
+                lead = "x".join(str(d) for d in x.shape[:-_tail])
                 self.shapes[f"{_name}({lead})"] += 1
                 return _fn(x, *a, **k)
             setattr(mod, name, wrapped)
         return self
 
     def __exit__(self, *exc):
-        for mod, name, fn in self.saved:
+        for mod, name, _, fn in self.saved:
             setattr(mod, name, fn)
 
 
@@ -511,6 +639,8 @@ def main() -> int:
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     recs = check_field(device, 1 << 19, rng)
+    recs += check_ntt(device, 17, 8, rng)
+    recs += check_field_scans(device, 1 << 17, rng)
     recs += check_points(device, 1 << 17, rng)
     # a bounded column of the proof: one window of every row and the other
     # 15 of the blinding rows, padded to whole 64-point rows
@@ -519,7 +649,8 @@ def main() -> int:
     recs.append(check_quotient(
         device, os.path.join(REPO, "build", "rsa_1.pk.vk"), rng))
     for r in recs:
-        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms (plain "
+        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms ({r['issued_ms']:.4f} "
+            f"as issued from Python, plain "
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']})")
 
@@ -554,6 +685,13 @@ def main() -> int:
         raise AssertionError(f"fixed-base proof: {point_launches} launches of "
                              f"the point kernels, scan_madd "
                              f"{fb.get('scan_madd', 0)}")
+    binop_launches = sum(v for k, v in fb.items()
+                         if k.startswith("field_binop."))
+    log(f"[launches] fixed_base_proof: field_binop {binop_launches} in all, "
+        f"ntt {fb.get('ntt', 0)}")
+    if binop_launches >= 300 or not 0 < fb.get("ntt", 0) <= 8:
+        raise AssertionError(f"fixed-base proof: {binop_launches} launches of "
+                             f"field_binop, {fb.get('ntt', 0)} of ntt")
 
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

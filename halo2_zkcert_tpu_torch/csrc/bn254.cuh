@@ -32,7 +32,9 @@
 namespace bn254 {
 
 enum FieldId { FR = 0, FQ = 1 };
-enum BinOp { OP_MUL = 0, OP_ADD = 1, OP_SUB = 2 };
+// OP_MULM is the bare Montgomery product a * b * 2^-256: with b stored as
+// v * 2^256 (a table, a constant) it is the canonical a * v in one product.
+enum BinOp { OP_MUL = 0, OP_ADD = 1, OP_SUB = 2, OP_MULM = 3 };
 
 struct Fe {
   uint32_t w[8];
@@ -179,6 +181,7 @@ template <int F> H2T_HD Fe fmul_canon(const Fe& a, const Fe& b) {
 
 template <int F, int OP> H2T_HD Fe binop_canon(const Fe& a, const Fe& b) {
   if (OP == OP_MUL) return fmul_canon<F>(a, b);
+  if (OP == OP_MULM) return mont_mul<F>(a, b);
   if (OP == OP_ADD) return fadd<F>(a, b);
   return fsub<F>(a, b);
 }
@@ -300,13 +303,21 @@ H2T_HD Pt point_madd_canon(const Pt& P, const Fe& x2, const Fe& y2) {
 //   (TAPE_LOAD, dst, column, row offset)  leaf column read at (row + off) mod n
 //   (TAPE_CONST, dst, index, 0)           constant or challenge
 //   (TAPE_ADD|TAPE_SUB|TAPE_MUL, dst, a, b)
-// Fr only; slots hold Montgomery form; the result slot leaves canonical.
+// Fr only.  Leaves, constants, slots and the result are all in Montgomery
+// form: nothing is converted per row, a MUL is one product and the row costs
+// exactly the tape's MUL count.  `Slots` is where a row keeps its slots
+// (get(i), set(i, v)): an array on the host, local or shared memory in the
+// kernel (quotient_forest.cu).
 // ---------------------------------------------------------------------------
 
 enum TapeOp { TAPE_LOAD = 0, TAPE_CONST = 1, TAPE_ADD = 2, TAPE_SUB = 3,
               TAPE_MUL = 4 };
 
-static const int TAPE_MAX_SLOTS = 64;
+// The largest slot count a kernel is built for: quotient_forest.cu
+// instantiates 8, 12, 17, 24, 32 and this (plonk/quotient.py SLOT_SIZES); 48
+// slots of 128 rows are 192 KB of the 227 KB a block may have, should they
+// lie in shared memory.
+static const int TAPE_MAX_SLOTS = 48;
 
 H2T_HD Fe load_fe(const uint32_t* src) {
   Fe r;
@@ -320,38 +331,9 @@ H2T_HD void store_fe(uint32_t* dst, const Fe& v) {
   for (int i = 0; i < 8; ++i) dst[i] = v.w[i];
 }
 
-// leaves: (num_cols, n_rows, 8); consts: (num_consts, 8); tape: (T, 4).
-H2T_HD Fe tape_eval_row(long long row, long long n_rows, const uint32_t* leaves,
-                        const uint32_t* consts, const int32_t* tape, int T,
-                        int out_slot, Fe* slots) {
-  for (int t = 0; t < T; ++t) {
-    const int32_t op = tape[4 * t], dst = tape[4 * t + 1];
-    const int32_t a = tape[4 * t + 2], b = tape[4 * t + 3];
-    Fe v;
-    if (op == TAPE_LOAD) {
-      long long r = (row + b) & (n_rows - 1);
-      v = to_mont<FR>(load_fe(leaves + ((long long)a * n_rows + r) * 8));
-    } else if (op == TAPE_CONST) {
-      v = to_mont<FR>(load_fe(consts + (long long)a * 8));
-    } else if (op == TAPE_ADD) {
-      v = fadd<FR>(slots[a], slots[b]);
-    } else if (op == TAPE_SUB) {
-      v = fsub<FR>(slots[a], slots[b]);
-    } else {
-      v = mont_mul<FR>(slots[a], slots[b]);
-    }
-    slots[dst] = v;
-  }
-  return from_mont<FR>(slots[out_slot]);
-}
-
-// ---------------------------------------------------------------------------
-// Points in memory: 24 canonical words (X, Y, Z), affine table points 16
-// (x, y).  The *_v forms move 16 bytes at a time in device code (every
-// element a kernel addresses starts on a 16-byte boundary, in device memory
-// and in the padded shared-memory tiles); on the host they are word loops.
-// ---------------------------------------------------------------------------
-
+// The *_v forms move 16 bytes at a time in device code (every element a
+// kernel addresses starts on a 16-byte boundary, in device memory and in the
+// shared-memory tiles); on the host they are word loops.
 H2T_HD Fe load_fe_v(const uint32_t* src) {
 #if defined(__CUDA_ARCH__)
   const uint4* q = reinterpret_cast<const uint4*>(src);
@@ -374,6 +356,38 @@ H2T_HD void store_fe_v(uint32_t* dst, const Fe& v) {
   store_fe(dst, v);
 #endif
 }
+
+// leaves: (num_cols, n_rows, 8); consts: (num_consts, 8); tape: (T, 4).
+template <class Slots>
+H2T_HD Fe tape_eval_row(long long row, long long n_rows, const uint32_t* leaves,
+                        const uint32_t* consts, const int32_t* tape, int T,
+                        int out_slot, Slots& slots) {
+#pragma unroll 1
+  for (int t = 0; t < T; ++t) {
+    const int32_t op = tape[4 * t], dst = tape[4 * t + 1];
+    const int32_t a = tape[4 * t + 2], b = tape[4 * t + 3];
+    Fe v;
+    if (op == TAPE_LOAD) {
+      long long r = (row + b) & (n_rows - 1);
+      v = load_fe_v(leaves + ((long long)a * n_rows + r) * 8);
+    } else if (op == TAPE_CONST) {
+      v = load_fe_v(consts + (long long)a * 8);
+    } else if (op == TAPE_ADD) {
+      v = fadd<FR>(slots.get(a), slots.get(b));
+    } else if (op == TAPE_SUB) {
+      v = fsub<FR>(slots.get(a), slots.get(b));
+    } else {
+      v = mont_mul<FR>(slots.get(a), slots.get(b));
+    }
+    slots.set(dst, v);
+  }
+  return slots.get(out_slot);
+}
+
+// ---------------------------------------------------------------------------
+// Points in memory: 24 canonical words (X, Y, Z), affine table points 16
+// (x, y), moved 16 bytes at a time like field elements.
+// ---------------------------------------------------------------------------
 
 H2T_HD Pt load_pt_v(const uint32_t* src) {
   Pt r;
@@ -497,6 +511,250 @@ H2T_HD void scan_madd_row(const uint32_t* src, const int32_t* digits,
     madd_run_step(run, src + 16 * j, dense ? 0 : digits[j], dense,
                   dst + 24 * (j - 1));
   madd_run_end(run, dst + 24 * (C - 1));
+}
+
+// ---------------------------------------------------------------------------
+// The NTT in passes over a tile (ntt.cu).  A length-2^k transform over Fr is
+// k radix-2 decimation-in-time stages on the bit-reversed input; stage s
+// pairs positions p and p + 2^s and multiplies the upper one by
+// w^((p mod 2^s) << (k - 1 - s)).  A pass does stages s0 .. s0 + t - 1 on
+// tiles that hold every position differing only in bits s0 .. s0 + t - 1,
+// for 2^a neighbouring values of the bits below s0 (a = 0 in the first
+// pass, which has none), so a tile is 2^(t + a) elements:
+//   position = high << (s0 + t) | c << s0 | lowblk << a | ls,
+//   tile = high << (s0 - a) | lowblk,   element i = c << a | ls.
+// The first pass reads position p from in[brev_k(p)], zero at or past the
+// input's length, times in_scale[that index mod its period] if given; later
+// passes read what the pass before wrote.  The last pass multiplies position
+// p by out_scale[p mod its period] if given.  A period is a power of two (1
+// for a scalar).  Twiddles and scale tables are
+// stored times 2^256, so every product is one mont_mul on the data as it is.
+//
+// A tile lies in memory as two planes of 16-byte halves, `cap` elements
+// each, so that neighbouring threads touch neighbouring banks.
+// ---------------------------------------------------------------------------
+
+struct NttPass {
+  int k, s0, t, a;
+};
+
+H2T_HD long long ntt_tile_pos(const NttPass& ps, long long tile, int i) {
+  const long long lowblk = tile & ((1LL << (ps.s0 - ps.a)) - 1);
+  const long long high = tile >> (ps.s0 - ps.a);
+  const long long c = i >> ps.a, ls = i & ((1 << ps.a) - 1);
+  return (high << (ps.s0 + ps.t)) | (c << ps.s0) | (lowblk << ps.a) | ls;
+}
+
+H2T_HD long long ntt_bitrev(long long p, int k) {
+  long long r = 0;
+#if defined(__CUDA_ARCH__)
+  r = k ? (long long)(__brev((unsigned)p) >> (32 - k)) : 0;
+#else
+  for (int b = 0; b < k; ++b) r |= ((p >> b) & 1) << (k - 1 - b);
+#endif
+  return r;
+}
+
+H2T_HD Fe tile_ld(const uint32_t* tile, int cap, int i) {
+  Fe r;
+#if defined(__CUDA_ARCH__)
+  const uint4* q = reinterpret_cast<const uint4*>(tile);
+  uint4 lo = q[i], hi = q[cap + i];
+  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
+  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
+#else
+  for (int w = 0; w < 4; ++w) {
+    r.w[w] = tile[4 * i + w];
+    r.w[4 + w] = tile[4 * (cap + i) + w];
+  }
+#endif
+  return r;
+}
+
+H2T_HD void tile_st(uint32_t* tile, int cap, int i, const Fe& v) {
+#if defined(__CUDA_ARCH__)
+  uint4* q = reinterpret_cast<uint4*>(tile);
+  q[i] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
+  q[cap + i] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
+#else
+  for (int w = 0; w < 4; ++w) {
+    tile[4 * i + w] = v.w[w];
+    tile[4 * (cap + i) + w] = v.w[4 + w];
+  }
+#endif
+}
+
+// Tile element i on its way in.  `in` is the column's input (first pass),
+// `out` the column's 2^k positions.
+H2T_HD Fe ntt_load(const NttPass& ps, long long tile, int i,
+                   const uint32_t* in, long long n_in, const uint32_t* out,
+                   const uint32_t* in_scale, long long in_period) {
+  const long long p = ntt_tile_pos(ps, tile, i);
+  if (ps.s0 > 0) return load_fe_v(out + p * 8);
+  const long long j = ntt_bitrev(p, ps.k);
+  if (j >= n_in) return fe_zero();
+  Fe x = load_fe_v(in + j * 8);
+  if (in_scale != nullptr)
+    x = mont_mul<FR>(x, load_fe_v(in_scale + (j & (in_period - 1)) * 8));
+  return x;
+}
+
+// Tile element i on its way out.
+H2T_HD void ntt_store(const NttPass& ps, long long tile, int i, Fe x,
+                      uint32_t* out, const uint32_t* out_scale,
+                      long long out_period) {
+  const long long p = ntt_tile_pos(ps, tile, i);
+  if (out_scale != nullptr && ps.s0 + ps.t == ps.k)
+    x = mont_mul<FR>(x, load_fe_v(out_scale + (p & (out_period - 1)) * 8));
+  store_fe_v(out + p * 8, x);
+}
+
+// The butterflies b0, b0 + step, ... of the pass's local stage sl.  `tw`
+// holds w^j * 2^256 for j < 2^(k - 1).  Stage 0 of the transform has the
+// twiddle 1 throughout and multiplies nothing.
+H2T_HD void ntt_tile_stage(uint32_t* tile, int cap, const NttPass& ps,
+                           long long tile_idx, int sl, const uint32_t* tw,
+                           int b0, int step) {
+  const int nb = 1 << (ps.t + ps.a - 1), s = ps.s0 + sl;
+  const long long lowblk = tile_idx & ((1LL << (ps.s0 - ps.a)) - 1);
+#pragma unroll 1
+  for (int b = b0; b < nb; b += step) {
+    const int ls = b & ((1 << ps.a) - 1), cb = b >> ps.a;
+    const int within = cb & ((1 << sl) - 1);
+    const int cl = ((cb >> sl) << (sl + 1)) | within;
+    const int i0 = (cl << ps.a) | ls, i1 = i0 + (1 << (sl + ps.a));
+    Fe x = tile_ld(tile, cap, i0), y = tile_ld(tile, cap, i1);
+    if (s > 0) {
+      const long long j =
+          ((long long)within << ps.s0) | (lowblk << ps.a) | ls;  // p mod 2^s
+      y = mont_mul<FR>(y, load_fe_v(tw + (j << (ps.k - 1 - s)) * 8));
+    }
+    tile_st(tile, cap, i0, fadd<FR>(x, y));
+    tile_st(tile, cap, i1, fsub<FR>(x, y));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The blocked scan of field elements (field_scan.cu): inclusive scans along
+// rows under one of three associative operations, and what one thread does
+// on its run of `cnt` consecutive elements.
+//   FS_PROD    x * y.  Inside, elements are in Montgomery form.
+//   FS_SUM     x + y, canonical throughout.
+//   FS_AFFINE  the maps A -> m A + b under composition: (m1, b1) then
+//              (m2, b2) is (m2 m1, m2 b1 + b2); the scan's result is the b of
+//              each prefix, the recurrence A[i] = m[i] A[i-1] + b[i] from
+//              A[-1] = 0.  Inside, m is in Montgomery form and b canonical:
+//              a composition is two products and converts nothing.
+// An element is FsEl<OP>: v[0] alone, or (m, b) = (v[0], v[1]).
+// ---------------------------------------------------------------------------
+
+enum FsOp { FS_PROD = 0, FS_SUM = 1, FS_AFFINE = 2 };
+
+template <int OP> struct FsEl {
+  static const int NV = OP == FS_AFFINE ? 2 : 1;
+  Fe v[NV];
+};
+
+template <int F> H2T_HD Fe fe_one_mont() {
+  Fe one = fe_zero();
+  one.w[0] = 1;
+  return to_mont<F>(one);
+}
+
+template <int F, int OP> H2T_HD FsEl<OP> fs_identity() {
+  FsEl<OP> r;
+  r.v[0] = OP == FS_SUM ? fe_zero() : fe_one_mont<F>();
+  if (OP == FS_AFFINE) r.v[FsEl<OP>::NV - 1] = fe_zero();
+  return r;
+}
+
+// `earlier` then `later`, both in the inside form.
+template <int F, int OP>
+H2T_HD FsEl<OP> fs_combine(const FsEl<OP>& e, const FsEl<OP>& l) {
+  FsEl<OP> r;
+  if (OP == FS_SUM) {
+    r.v[0] = fadd<F>(e.v[0], l.v[0]);
+  } else {
+    r.v[0] = mont_mul<F>(l.v[0], e.v[0]);
+    if (OP == FS_AFFINE)
+      r.v[FsEl<OP>::NV - 1] = fadd<F>(
+          mont_mul<F>(l.v[0], e.v[FsEl<OP>::NV - 1]), l.v[FsEl<OP>::NV - 1]);
+  }
+  return r;
+}
+
+// A canonical element from memory (m at `a`, b at `b` for FS_AFFINE) into
+// the inside form: one conversion for a product or a map, none for a sum.
+template <int F, int OP>
+H2T_HD FsEl<OP> fs_load(const uint32_t* a, const uint32_t* b) {
+  FsEl<OP> r;
+  r.v[0] = load_fe_v(a);
+  if (OP != FS_SUM) r.v[0] = to_mont<F>(r.v[0]);
+  if (OP == FS_AFFINE) r.v[FsEl<OP>::NV - 1] = load_fe_v(b);
+  return r;
+}
+
+template <int OP>
+H2T_HD void fs_store(uint32_t* a, uint32_t* b, const FsEl<OP>& x) {
+  store_fe_v(a, x.v[0]);
+  if (OP == FS_AFFINE) store_fe_v(b, x.v[FsEl<OP>::NV - 1]);
+}
+
+// What `fs_apply` wants of the combination of everything before a run: the
+// canonical product, the sum or the map's b as they are.
+template <int F, int OP> H2T_HD Fe fs_offset(const FsEl<OP>& before) {
+  if (OP == FS_PROD) return from_mont<F>(before.v[0]);
+  return before.v[FsEl<OP>::NV - 1];
+}
+
+// The canonical result for an inside-form prefix x of a run whose
+// predecessors combine to `off` (fs_offset): one product or none.
+template <int F, int OP> H2T_HD Fe fs_apply(const Fe& off, const FsEl<OP>& x) {
+  if (OP == FS_SUM) return fadd<F>(off, x.v[0]);
+  Fe r = mont_mul<F>(x.v[0], off);
+  if (OP == FS_AFFINE) r = fadd<F>(r, x.v[FsEl<OP>::NV - 1]);
+  return r;
+}
+
+// fs_run_local: canonical elements at a (and b), 8 words each -> in place,
+// their inclusive prefixes within the run in the inside form; returns the
+// run's total, the identity for an empty run.  fs_run_total: the same total,
+// nothing written.  fs_run_apply: prefix k -> the canonical result at a.
+template <int F, int OP>
+H2T_HD FsEl<OP> fs_run_local(uint32_t* a, uint32_t* b, int cnt) {
+  if (cnt <= 0) return fs_identity<F, OP>();
+  FsEl<OP> acc = fs_load<F, OP>(a, b);
+  fs_store<OP>(a, b, acc);
+#pragma unroll 1
+  for (int k = 1; k < cnt; ++k) {
+    acc = fs_combine<F, OP>(acc, fs_load<F, OP>(a + 8 * k, b + 8 * k));
+    fs_store<OP>(a + 8 * k, b + 8 * k, acc);
+  }
+  return acc;
+}
+
+template <int F, int OP>
+H2T_HD FsEl<OP> fs_run_total(const uint32_t* a, const uint32_t* b,
+                             long long stride, long long cnt) {
+  if (cnt <= 0) return fs_identity<F, OP>();
+  FsEl<OP> acc = fs_load<F, OP>(a, b);
+#pragma unroll 1
+  for (long long k = 1; k < cnt; ++k)
+    acc = fs_combine<F, OP>(acc,
+                            fs_load<F, OP>(a + stride * k, b + stride * k));
+  return acc;
+}
+
+template <int F, int OP>
+H2T_HD void fs_run_apply(uint32_t* a, const uint32_t* b, int cnt,
+                         const Fe& off) {
+#pragma unroll 1
+  for (int k = 0; k < cnt; ++k) {
+    FsEl<OP> x;
+    x.v[0] = load_fe_v(a + 8 * k);
+    if (OP == FS_AFFINE) x.v[FsEl<OP>::NV - 1] = load_fe_v(b + 8 * k);
+    store_fe_v(a + 8 * k, fs_apply<F, OP>(off, x));
+  }
 }
 
 }  // namespace bn254

@@ -1,4 +1,6 @@
-// K1 field_binop: batched BN254 Fr/Fq modular mul, add or sub.
+// K1 field_binop: batched BN254 Fr/Fq modular mul, add or sub, and mulm, the
+// bare Montgomery product (one operand stored times 2^256: a table, a
+// constant), which is a canonical product at half a mul's arithmetic.
 //
 // Replaces the TPU kernels fused_mul / fused_add / fused_sub
 // (halo2_zkcert_tpu/ops/pallas_limbs.py:435, :441, :446), which worked on
@@ -18,21 +20,6 @@
 
 using namespace bn254;
 
-__device__ __forceinline__ Fe ld(const uint32_t* p) {
-  const uint4* q = reinterpret_cast<const uint4*>(p);
-  uint4 lo = q[0], hi = q[1];
-  Fe r;
-  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
-  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
-  return r;
-}
-
-__device__ __forceinline__ void st(uint32_t* p, const Fe& v) {
-  uint4* q = reinterpret_cast<uint4*>(p);
-  q[0] = make_uint4(v.w[0], v.w[1], v.w[2], v.w[3]);
-  q[1] = make_uint4(v.w[4], v.w[5], v.w[6], v.w[7]);
-}
-
 template <int F, int OP>
 __global__ void k_field_binop(const uint32_t* __restrict__ a,
                               const uint32_t* __restrict__ b,
@@ -40,9 +27,9 @@ __global__ void k_field_binop(const uint32_t* __restrict__ a,
                               long long nb) {
   long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  Fe x = ld(a + i * 8);
-  Fe y = ld(b + (i % nb) * 8);
-  st(out + i * 8, binop_canon<F, OP>(x, y));
+  Fe x = load_fe_v(a + i * 8);
+  Fe y = load_fe_v(b + (i % nb) * 8);
+  store_fe_v(out + i * 8, binop_canon<F, OP>(x, y));
 }
 
 template <int F, int OP>
@@ -61,10 +48,12 @@ extern "C" int h2t_field_binop(int field, int op, const void* a, const void* b,
   if (n <= 0) return 0;
   if (field == FR) {
     if (op == OP_MUL) launch<FR, OP_MUL>(a, b, out, n, nb, s);
+    else if (op == OP_MULM) launch<FR, OP_MULM>(a, b, out, n, nb, s);
     else if (op == OP_ADD) launch<FR, OP_ADD>(a, b, out, n, nb, s);
     else launch<FR, OP_SUB>(a, b, out, n, nb, s);
   } else {
     if (op == OP_MUL) launch<FQ, OP_MUL>(a, b, out, n, nb, s);
+    else if (op == OP_MULM) launch<FQ, OP_MULM>(a, b, out, n, nb, s);
     else if (op == OP_ADD) launch<FQ, OP_ADD>(a, b, out, n, nb, s);
     else launch<FQ, OP_SUB>(a, b, out, n, nb, s);
   }

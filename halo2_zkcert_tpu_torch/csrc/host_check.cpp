@@ -15,10 +15,12 @@ extern "C" void hc_field_binop(int field, int op, const uint32_t* a,
     Fe x = load_fe(a + 8 * i), y = load_fe(b + 8 * i), r;
     if (field == FR) {
       r = op == OP_MUL ? binop_canon<FR, OP_MUL>(x, y)
+        : op == OP_MULM ? binop_canon<FR, OP_MULM>(x, y)
         : op == OP_ADD ? binop_canon<FR, OP_ADD>(x, y)
                        : binop_canon<FR, OP_SUB>(x, y);
     } else {
       r = op == OP_MUL ? binop_canon<FQ, OP_MUL>(x, y)
+        : op == OP_MULM ? binop_canon<FQ, OP_MULM>(x, y)
         : op == OP_ADD ? binop_canon<FQ, OP_ADD>(x, y)
                        : binop_canon<FQ, OP_SUB>(x, y);
     }
@@ -106,11 +108,123 @@ extern "C" void hc_point_row_sum(const uint32_t* P, uint32_t* out, long long B,
   }
 }
 
+// Montgomery form in (leaves, constants), Montgomery form out.
+struct HostSlots {
+  std::vector<Fe> s;
+  Fe get(int i) const { return s[i]; }
+  void set(int i, const Fe& v) { s[i] = v; }
+};
+
 extern "C" void hc_quotient_forest(const uint32_t* leaves, long long n_rows,
                                    const uint32_t* consts, const int32_t* tape,
-                                   int T, int out_slot, uint32_t* out) {
-  Fe slots[TAPE_MAX_SLOTS];
+                                   int T, int num_slots, int out_slot,
+                                   uint32_t* out) {
+  HostSlots slots;
+  slots.s.resize(num_slots);
   for (long long row = 0; row < n_rows; ++row)
     store_fe(out + 8 * row, tape_eval_row(row, n_rows, leaves, consts, tape, T,
                                           out_slot, slots));
+}
+
+// One pass of the transform as ntt.cu's kernel makes it, tile by tile: the
+// arguments of h2t_ntt_pass without the stream, and any tile size.
+extern "C" int hc_ntt_pass(const uint32_t* in, long long n_in, uint32_t* out,
+                           long long B, int k, int s0, int t, int a,
+                           const uint32_t* tw, const uint32_t* in_scale,
+                           long long in_period, const uint32_t* out_scale,
+                           long long out_period) {
+  if (t < 0 || a < 0 || a > s0 || s0 + t > k) return 1;
+  NttPass ps = {k, s0, t, a};
+  const int cap = 1 << (t + a);
+  std::vector<uint32_t> tile(8 * cap);
+  for (long long col = 0; col < B; ++col) {
+    uint32_t* col_out = out + (col << k) * 8;
+    for (long long tile_idx = 0; tile_idx < (1LL << (k - t - a)); ++tile_idx) {
+      for (int i = 0; i < cap; ++i)
+        tile_st(tile.data(), cap, i,
+                ntt_load(ps, tile_idx, i, in + col * n_in * 8, n_in, col_out,
+                         in_scale, in_period));
+      for (int sl = 0; sl < t; ++sl)   // two interleaved "threads"
+        for (int b0 = 0; b0 < 2; ++b0)
+          ntt_tile_stage(tile.data(), cap, ps, tile_idx, sl, tw, b0, 2);
+      for (int i = 0; i < cap; ++i)
+        ntt_store(ps, tile_idx, i, tile_ld(tile.data(), cap, i), col_out,
+                  out_scale, out_period);
+    }
+  }
+  return 0;
+}
+
+// The blocked field scan as field_scan.cu lays it out, on the host: each row
+// (mirrored when `reverse`) is cut into runs of `run` elements, every run
+// goes through fs_run_local, the run totals are combined in order, and every
+// run through fs_run_apply with the combination of the runs before it.
+template <int F, int OP>
+static void field_scan_rows(const uint32_t* a, const uint32_t* b,
+                            uint32_t* out, long long B, long long n, int run,
+                            int reverse) {
+  std::vector<uint32_t> ta(8 * n), tb(8 * n);
+  for (long long r = 0; r < B; ++r) {
+    for (long long l = 0; l < n; ++l) {
+      long long src = (r * n + (reverse ? n - 1 - l : l)) * 8;
+      std::memcpy(&ta[8 * l], a + src, 32);
+      if (OP == FS_AFFINE) std::memcpy(&tb[8 * l], b + src, 32);
+    }
+    std::vector<FsEl<OP>> totals;
+    for (long long s = 0; s < n; s += run)
+      totals.push_back(fs_run_local<F, OP>(
+          &ta[8 * s], &tb[8 * s], (int)std::min<long long>(run, n - s)));
+    FsEl<OP> before = fs_identity<F, OP>();
+    for (long long s = 0, i = 0; s < n; s += run, ++i) {
+      fs_run_apply<F, OP>(&ta[8 * s], &tb[8 * s],
+                          (int)std::min<long long>(run, n - s),
+                          fs_offset<F, OP>(before));
+      before = fs_combine<F, OP>(before, totals[i]);
+    }
+    for (long long l = 0; l < n; ++l)
+      std::memcpy(out + (r * n + (reverse ? n - 1 - l : l)) * 8, &ta[8 * l],
+                  32);
+  }
+}
+
+extern "C" int hc_field_scan(int field, int op, const uint32_t* a,
+                             const uint32_t* b, uint32_t* out, long long B,
+                             long long n, int run, int reverse) {
+#define HC_SCAN(F, OP) \
+  if (field == F && op == OP) \
+    return field_scan_rows<F, OP>(a, b, out, B, n, run, reverse), 0;
+  HC_SCAN(FR, FS_PROD) HC_SCAN(FR, FS_SUM) HC_SCAN(FR, FS_AFFINE)
+  HC_SCAN(FQ, FS_PROD) HC_SCAN(FQ, FS_SUM) HC_SCAN(FQ, FS_AFFINE)
+  return 1;
+}
+
+// Row totals as k_field_reduce takes them: `lanes` consecutive chunks a row
+// (fs_run_total), combined in order; canonical out.  The map's m goes to
+// out_a and its b to out_b.
+template <int F, int OP>
+static void field_totals(const uint32_t* a, const uint32_t* b, uint32_t* out_a,
+                         uint32_t* out_b, long long B, long long n,
+                         int lanes) {
+  const long long chunk = (n + lanes - 1) / lanes;
+  for (long long r = 0; r < B; ++r) {
+    FsEl<OP> acc = fs_identity<F, OP>();
+    for (long long lo = 0; lo < n; lo += chunk)
+      acc = fs_combine<F, OP>(acc, fs_run_total<F, OP>(
+          a + (r * n + lo) * 8, b + (r * n + lo) * 8, 8,
+          std::min(chunk, n - lo)));
+    if (OP != FS_SUM) acc.v[0] = from_mont<F>(acc.v[0]);
+    fs_store<OP>(out_a + 8 * r, out_b + 8 * r, acc);
+  }
+}
+
+extern "C" int hc_field_reduce(int field, int op, const uint32_t* a,
+                               const uint32_t* b, uint32_t* out_a,
+                               uint32_t* out_b, long long B, long long n,
+                               int lanes) {
+#define HC_REDUCE(F, OP) \
+  if (field == F && op == OP) \
+    return field_totals<F, OP>(a, b, out_a, out_b, B, n, lanes), 0;
+  HC_REDUCE(FR, FS_PROD) HC_REDUCE(FR, FS_SUM) HC_REDUCE(FR, FS_AFFINE)
+  HC_REDUCE(FQ, FS_PROD) HC_REDUCE(FQ, FS_SUM) HC_REDUCE(FQ, FS_AFFINE)
+  return 1;
 }

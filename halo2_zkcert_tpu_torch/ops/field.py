@@ -10,6 +10,11 @@ TPU has no fast integer multiply.
 TPU's fused_mul / fused_add / fused_sub): on a CUDA tensor it launches the
 kernel, on a CPU tensor it runs `binop_plain`, the same function written as
 limb arithmetic in int64 tensors (16-bit limbs, Montgomery reduction).
+
+A canonical product is two Montgomery products.  Where one operand is known
+beforehand (a table, a host constant) it is kept in Montgomery form, v * R
+with R = 2^256, and `mul_mont` (K1's fourth operation, "mulm") gives the
+canonical product in one: `mul_const` does so with its host integer.
 """
 from __future__ import annotations
 
@@ -19,8 +24,8 @@ import torch
 from ..utils import refcrypto as rc
 from . import kernels
 
-OP_MUL, OP_ADD, OP_SUB = 0, 1, 2
-_OPS = {"mul": OP_MUL, "add": OP_ADD, "sub": OP_SUB}
+OP_MUL, OP_ADD, OP_SUB, OP_MULM = 0, 1, 2, 3
+_OPS = {"mul": OP_MUL, "add": OP_ADD, "sub": OP_SUB, "mulm": OP_MULM}
 OP_NAMES = {v: k for k, v in _OPS.items()}
 M16 = 0xFFFF
 M32 = 0xFFFFFFFF
@@ -36,6 +41,7 @@ class Field:
         self.p16 = [(modulus >> (16 * i)) & M16 for i in range(16)]
         self.p32 = [(modulus >> (32 * i)) & M32 for i in range(8)]
         self.pinv16 = (-pow(modulus, -1, 1 << 16)) % (1 << 16)
+        self.r = pow(2, 256, modulus)
         self.r2 = pow(2, 512, modulus)
         self._dev: dict = {}
 
@@ -168,6 +174,11 @@ def mul_plain(F: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return _canon_from_limbs(F, _mont(F, x, F.tables(x.device)["r2"]))
 
 
+def mul_mont_plain(F: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a * b * R^-1: one Montgomery product, canonical words out."""
+    return _canon_from_limbs(F, _mont(F, _to16(a), _to16(b)))
+
+
 def _addsub_words(F: Field, a: torch.Tensor, b: torch.Tensor, sub: bool):
     a64 = a.to(torch.int64) & M32
     b64 = b.to(torch.int64) & M32
@@ -217,6 +228,8 @@ def binop_plain(F: Field, op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     op = _OPS.get(op, op)
     if op == OP_MUL:
         return mul_plain(F, a, b)
+    if op == OP_MULM:
+        return mul_mont_plain(F, a, b)
     return _addsub_words(F, a, b, sub=(op == OP_SUB))
 
 
@@ -244,7 +257,7 @@ def binop(F: Field, op, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return binop_plain(F, op, a, b)
     shape = torch.broadcast_shapes(a.shape, b.shape)
     if a.shape != shape:
-        if op != OP_SUB and b.shape == shape:
+        if op != OP_SUB and b.shape == shape:      # the products commute
             a, b = b, a
         else:
             a = a.expand(shape)
@@ -288,9 +301,29 @@ def sqr(F, a):
     return binop(F, OP_MUL, a, a)
 
 
+def mul_mont(F, a: torch.Tensor, b_mont: torch.Tensor) -> torch.Tensor:
+    """a * b for a `b_mont` that holds b * R: one Montgomery product."""
+    return binop(F, OP_MULM, a, b_mont)
+
+
+def const_mont(F: Field, v: int, device) -> torch.Tensor:
+    """One element times R as an (8,) tensor, converted on the host."""
+    return const(F, v * F.r, device)
+
+
+def to_mont(F, a: torch.Tensor) -> torch.Tensor:
+    """a -> a * R, what a kernel that takes Montgomery form wants."""
+    return binop(F, OP_MULM, a, const(F, F.r2, a.device))
+
+
+def from_mont(F, a: torch.Tensor) -> torch.Tensor:
+    """a * R -> a."""
+    return binop(F, OP_MULM, a, const(F, 1, a.device))
+
+
 def mul_const(F, a: torch.Tensor, v: int) -> torch.Tensor:
     """a * v for a host int v (mul_small of the JAX package included)."""
-    return binop(F, OP_MUL, a, const(F, v, a.device))
+    return mul_mont(F, a, const_mont(F, v, a.device))
 
 
 def pow_const(F, a: torch.Tensor, e: int) -> torch.Tensor:

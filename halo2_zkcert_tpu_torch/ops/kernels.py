@@ -28,6 +28,8 @@ HEADERS = ("bn254.cuh",)
 SOURCES = {
     "cios_rate": "cios_rate.cu",
     "field_binop": "field_binop.cu",
+    "field_scan": "field_scan.cu",
+    "ntt": "ntt.cu",
     "point_ops": "point_ops.cu",
     "point_scan": "point_scan.cu",
     "quotient_forest": "quotient_forest.cu",
@@ -43,13 +45,16 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
     "h2t_cios_rate": [_P, _P, _I, _I, _I, _I, _P],
     "h2t_field_binop": [_I, _I, _P, _P, _P, _L, _L, _P],
+    "h2t_field_scan": [_I, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P],
+    "h2t_field_reduce": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _P],
+    "h2t_ntt_pass": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _L, _P, _L, _P],
     "h2t_point_add": [_P, _P, _P, _L, _P],
     "h2t_point_double": [_P, _P, _L, _P],
     "h2t_point_add_mixed": [_P, _P, _P, _L, _P],
     "h2t_point_scan": [_P, _L, _P, _P, _L, _L, _L, _I, _P],
     "h2t_point_reduce": [_P, _L, _P, _L, _L, _L, _I, _P],
     "h2t_scan_madd": [_P, _P, _P, _L, _I, _P],
-    "h2t_quotient_forest": [_P, _L, _P, _P, _I, _I, _P, _P],
+    "h2t_quotient_forest": [_P, _L, _P, _P, _I, _I, _I, _P, _P],
 }
 
 

@@ -85,15 +85,15 @@ class Domain:
     def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
         return ntt.ntt(coeffs, self.k)
 
-    def coeff_to_extended(self, coeffs: torch.Tensor) -> torch.Tensor:
-        """(..., n, 8) coefficients -> (..., ext_n, 8) coset values."""
-        pad = self.extended_n - coeffs.shape[-2]
-        if pad:
-            coeffs = torch.nn.functional.pad(coeffs, (0, 0, 0, pad))
-        return ntt.coset_ntt(coeffs, self.extended_k, self.G_COSET)
+    def coeff_to_extended(self, coeffs: torch.Tensor,
+                          out_mont: bool = False) -> torch.Tensor:
+        """(..., n, 8) coefficients -> (..., ext_n, 8) coset values (the
+        transform pads with zeros); in Montgomery form with `out_mont`."""
+        return ntt.coset_ntt(coeffs, self.extended_k, self.G_COSET, out_mont)
 
-    def extended_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
-        return ntt.coset_intt(values, self.extended_k, self.G_COSET)
+    def extended_to_coeff(self, values: torch.Tensor,
+                          in_mont: bool = False) -> torch.Tensor:
+        return ntt.coset_intt(values, self.extended_k, self.G_COSET, in_mont)
 
     @cached_property
     def zh_inv_extended(self) -> torch.Tensor:
@@ -112,4 +112,9 @@ class Domain:
     def omega_pows_device(self) -> torch.Tensor:
         """(n, 8) [1, omega, omega^2, ...]."""
         return ntt.power_table(self.omega, self.n, self.device)
+
+    @cached_property
+    def omega_pows_mont(self) -> torch.Tensor:
+        """The same table times R, for `field.mul_mont`."""
+        return ntt.power_table(self.omega, self.n, self.device, mont=True)
 

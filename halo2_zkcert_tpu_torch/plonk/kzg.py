@@ -125,8 +125,8 @@ def setup(k: int, tau: int | None = None, device="cuda") -> ParamsKZG:
     omega_pows = dom.omega_pows_device
     denom = field.sub(FR, tau_t, omega_pows)                       # tau - w^i
     scale = (pow(tau, n, rc.FR) - 1) * rc.finv(n, rc.FR) % rc.FR
-    li = field.mul(FR, field.mul(FR, omega_pows, frops.batch_inv(denom)),
-                   field.const(FR, scale, device))
+    li = field.mul_const(FR, field.mul_mont(FR, frops.batch_inv(denom),
+                                            dom.omega_pows_mont), scale)
     gen = curve.from_affine(curve.points_to_device([rc.G1_GEN], device))
     pts = curve.scalar_mul(gen.expand(2 * n, 3, 8).contiguous(),
                            torch.cat((tau_pows, li)))

@@ -99,7 +99,7 @@ def _grand_products(pk: ProvingKey, perm_vals, lookups, beta: int,
     chunk_len = csys.permutation_chunk_len()
     nperm = len(csys.permutation_columns)
     beta_t, gamma_t = field.const(FR, beta, dev), field.const(FR, gamma, dev)
-    ob = field.mul(FR, dom.omega_pows_device, beta_t)
+    ob = field.mul_const(FR, dom.omega_pows_device, beta)
     nums, dens = [], []
     for ci in range(csys.num_permutation_chunks()):
         num = den = None
@@ -109,7 +109,7 @@ def _grand_products(pk: ProvingKey, perm_vals, lookups, beta: int,
                 FR, v, field.mul_const(FR, ob, pow(DELTA, gpos, rc.FR))),
                 gamma_t)
             t_den = field.add(FR, field.add(
-                FR, v, field.mul(FR, pk.sigma_lagrange[gpos], beta_t)),
+                FR, v, field.mul_const(FR, pk.sigma_lagrange[gpos], beta)),
                 gamma_t)
             num = t_num if num is None else field.mul(FR, num, t_num)
             den = t_den if den is None else field.mul(FR, den, t_den)
@@ -142,8 +142,10 @@ def _grand_products(pk: ProvingKey, perm_vals, lookups, beta: int,
 
 
 class _Quotient:
-    """Per-pk quotient pipeline: the pk's extended columns and the tape are
-    built once; each proof converts its fresh columns and runs K4."""
+    """Per-pk quotient pipeline: the pk's extended columns (kept in
+    Montgomery form, what K4 reads) and the tape are built once; each proof
+    transforms its fresh columns onto the coset in that form, runs K4 and
+    hands its result to the inverse transform as it is."""
 
     def __init__(self, pk: ProvingKey):
         csys = pk.vk.cs
@@ -157,12 +159,12 @@ class _Quotient:
         basis[0, 0, 0] = 1
         basis[1, u_row, 0] = 1
         basis[2, u_row + 1:, 0] = 1
-        aux = dom.coeff_to_extended(dom.lagrange_to_coeff(basis))
+        aux = dom.coeff_to_extended(dom.lagrange_to_coeff(basis), True)
         ident = field.mul_const(FR, ntt.power_table(dom.extended_omega, ext_n,
                                                     dev), dom.G_COSET)
-        parts = [dom.coeff_to_extended(pk.fixed_coeff),
-                 dom.coeff_to_extended(pk.sigma_coeff),
-                 aux, ident[None], dom.zh_inv_extended[None]]
+        parts = [dom.coeff_to_extended(pk.fixed_coeff, True),
+                 dom.coeff_to_extended(pk.sigma_coeff, True), aux,
+                 field.to_mont(FR, torch.stack((ident, dom.zh_inv_extended)))]
         self.static = torch.cat(parts)
         assert self.static.shape[0] == self.layout[("aux", AUX[-1])] + 1
 
@@ -171,10 +173,10 @@ class _Quotient:
         permuted inputs, permuted tables (leaf_layout order).  Returns the
         quotient pieces (qd, n, 8) in coefficient form."""
         dom = self.dom
-        ext = dom.coeff_to_extended(dom.lagrange_to_coeff(lag_cols))
+        ext = dom.coeff_to_extended(dom.lagrange_to_coeff(lag_cols), True)
         leaves = torch.cat((self.static, ext))
         h = quotient_forest(leaves, self.tape.const_table(chal), self.tape)
-        coeffs = dom.extended_to_coeff(h)
+        coeffs = dom.extended_to_coeff(h, True)
         return coeffs.reshape(-1, dom.n, 8)[:dom.quotient_degree]
 
 
@@ -366,7 +368,8 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
             points.append(pt)
     weights = frops.bary_weights(
         dom.omega_pows_device, field.from_ints(FR, points, dev),
-        field.from_ints(FR, [dom.bary_scale(pt) for pt in points], dev))
+        field.from_ints(FR, [dom.bary_scale(pt) for pt in points], dev),
+        dom.omega_pows_mont)
     res = []
     for off in range(0, len(pairs), 16):
         chunk = pairs[off:off + 16]

@@ -15,6 +15,14 @@ tensor it launches csrc/quotient_forest.cu, on a CPU tensor it runs
 `quotient_forest_plain`, a torch interpreter of the same tape over whole
 columns.  Rotations never enter the arithmetic: a rotated leaf is a row
 offset.
+
+Leaves, constants and the result are in MONTGOMERY form (x * R, R = 2^256;
+`field.to_mont` / `field.from_mont`): a MUL is then one Montgomery product
+and nothing is converted per row.  The prover keeps the pk's extended
+columns so, takes the fresh ones so out of the coset transform
+(`ntt.coset_ntt(out_mont=True)`) and hands the result so to the inverse one
+(`ntt.coset_intt(in_mont=True)`); `Tape.const_table` converts the constants
+once and the challenges per proof.
 """
 from __future__ import annotations
 
@@ -29,7 +37,10 @@ from .cs import ADVICE, DELTA, FIXED, INSTANCE
 
 LOAD, CONST, ADD, SUB, MUL = 0, 1, 2, 3, 4
 _CHAL = -1            # while lowering only: a challenge load, patched to CONST
-MAX_SLOTS = 64        # TAPE_MAX_SLOTS in csrc/bn254.cuh
+# slot counts csrc/quotient_forest.cu is instantiated for; a tape runs on the
+# smallest that holds it.  The last is TAPE_MAX_SLOTS of csrc/bn254.cuh.
+SLOT_SIZES = (8, 12, 17, 24, 32, 48)
+MAX_SLOTS = SLOT_SIZES[-1]
 AUX = ("l0", "llast", "lblind", "ident", "zh_inv")
 
 
@@ -52,14 +63,15 @@ class Tape:
         t = self._dev.get(key)
         if t is None:
             t = (torch.from_numpy(self.ins).to(device),
-                 field.from_ints(FR, self.consts, device))
+                 field.from_ints(FR, [c * FR.r for c in self.consts], device))
             self._dev[key] = t
         return t
 
     def const_table(self, chal: torch.Tensor) -> torch.Tensor:
-        """Constants then challenges, (num_consts + num_challenges, 8)."""
+        """Constants then the canonical challenges `chal`, all in Montgomery
+        form, (num_consts + num_challenges, 8)."""
         _, consts = self.device_tables(chal.device)
-        return torch.cat((consts, chal)).contiguous()
+        return torch.cat((consts, field.to_mont(FR, chal))).contiguous()
 
 
 class _Builder:
@@ -261,7 +273,7 @@ def compile_tape(csys, n: int, ext_n: int) -> Tape:
 def quotient_forest_plain(leaves: torch.Tensor, consts: torch.Tensor,
                           tape: Tape) -> torch.Tensor:
     """Run the tape over whole columns: leaves (L, ext_n, 8), consts
-    (K, 8) -> (ext_n, 8)."""
+    (K, 8) -> (ext_n, 8), Montgomery form in and out."""
     slots: list = [None] * tape.num_slots
     for op, dst, a, b in tape.ins.tolist():
         if op == LOAD:
@@ -269,7 +281,7 @@ def quotient_forest_plain(leaves: torch.Tensor, consts: torch.Tensor,
         elif op == CONST:
             v = consts[a]
         else:
-            v = field.binop_plain(FR, {ADD: "add", SUB: "sub", MUL: "mul"}[op],
+            v = field.binop_plain(FR, {ADD: "add", SUB: "sub", MUL: "mulm"}[op],
                                   slots[a], slots[b])
         slots[dst] = v
     return slots[tape.out_slot].expand(leaves.shape[1:]).contiguous()
@@ -292,6 +304,6 @@ def quotient_forest(leaves: torch.Tensor, consts: torch.Tensor,
     kernels.launches["quotient_forest"] += 1
     kernels.check(lib.h2t_quotient_forest(
         leaves.data_ptr(), n_rows, consts.data_ptr(), ins.data_ptr(),
-        ins.shape[0], tape.out_slot, out.data_ptr(),
+        ins.shape[0], tape.num_slots, tape.out_slot, out.data_ptr(),
         kernels.stream_ptr(leaves.device)), "quotient_forest")
     return out

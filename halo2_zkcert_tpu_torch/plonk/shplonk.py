@@ -139,7 +139,7 @@ def open_shplonk(params, queries, transcript, dom) -> None:
     maxd = max(len(pts) for pts, _, _ in combined)
     pwd = [None, omega]
     for d in range(2, maxd):
-        pwd.append(field.mul(FR, pwd[-1], omega))
+        pwd.append(field.mul_mont(FR, pwd[-1], dom.omega_pows_mont))
     # Z_{S_i}(omega^j) = prod_z (omega^j - z), one batched inversion
     zs = []
     for pts, _, _ in combined:

@@ -1,5 +1,6 @@
 """The kernels' own arithmetic, checked without a GPU: csrc/bn254.cuh's
-__host__ __device__ field, RCB16 and tape-interpreter functions, built with
+__host__ __device__ field, RCB16, tape-interpreter, transform-pass and
+blocked-scan functions, built with
 g++ through csrc/host_check.cpp into a small host library, against the
 Python-int oracle and the port's plain versions.  Test-only: the main path
 never loads this library."""
@@ -12,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_zkcert_tpu_torch.ops import curve, field, msm_fb, scan
+from halo2_zkcert_tpu_torch.ops import curve, field, frops, msm_fb, ntt, scan
 from halo2_zkcert_tpu_torch.ops.field import FQ, FR
 from halo2_zkcert_tpu_torch.plonk import quotient
 from halo2_zkcert_tpu_torch.plonk.cs import ConstraintSystem
@@ -44,7 +45,11 @@ def hc(tmp_path_factory):
     lib.hc_point_scan.argtypes = [P, P, L, L, ctypes.c_int, ctypes.c_int]
     lib.hc_point_row_sum.argtypes = [P, P, L, L, ctypes.c_int]
     lib.hc_quotient_forest.argtypes = [P, L, P, P, ctypes.c_int, ctypes.c_int,
-                                       P]
+                                       ctypes.c_int, P]
+    I = ctypes.c_int
+    lib.hc_ntt_pass.argtypes = [P, L, P, L, I, I, I, I, P, P, L, P, L]
+    lib.hc_field_scan.argtypes = [I, I, P, P, P, L, L, I, I]
+    lib.hc_field_reduce.argtypes = [I, I, P, P, P, P, L, L, I]
     return lib
 
 
@@ -73,6 +78,22 @@ def test_field_binop_host(hc, fname, op):
           "sub": lambda x, y: x - y}[op]
     assert field.to_ints(out) == [py(x, y) % p for x, y in zip(a, b)]
     assert torch.equal(out, field.binop_plain(F, op, ta, tb))
+
+
+@pytest.mark.parametrize("fname", ["Fr", "Fq"])
+def test_field_mulm_host(hc, fname):
+    """K1's fourth operation, the bare Montgomery product: a * b / R, so
+    a * v for an operand that holds v * R."""
+    F = FR if fname == "Fr" else FQ
+    p = F.modulus
+    a, v = _vals(p, 3, 64), _vals(p, 4, 64)[::-1]
+    ta = field.from_ints(F, a, "cpu")
+    tb = field.from_ints(F, [x * F.r for x in v], "cpu")
+    out = torch.empty_like(ta)
+    hc.hc_field_binop(F.fid, field.OP_MULM, _ptr(ta), _ptr(tb), _ptr(out),
+                      len(a))
+    assert field.to_ints(out) == [x * y % p for x, y in zip(a, v)]
+    assert torch.equal(out, field.mul_mont_plain(F, ta, tb))
 
 
 def _points(seed, count):
@@ -224,6 +245,9 @@ def _toy_cs():
 
 
 def test_quotient_tape_host(hc):
+    """The tape interpreter under its contract, Montgomery form in and out:
+    equal to the plain version word for word, and nothing but the tape's
+    products in between (a tape of one MUL gives a * b / R)."""
     cs = _toy_cs()
     k = 4
     n = 1 << k
@@ -240,6 +264,139 @@ def test_quotient_tape_host(hc):
     ins = torch.from_numpy(tape.ins).contiguous()
     out = torch.empty((ext_n, 8), dtype=torch.int32)
     hc.hc_quotient_forest(_ptr(leaves), ext_n, _ptr(consts), _ptr(ins),
-                          ins.shape[0], tape.out_slot, _ptr(out))
+                          ins.shape[0], tape.num_slots, tape.out_slot,
+                          _ptr(out))
     assert torch.equal(out, quotient.quotient_forest_plain(leaves, consts,
                                                            tape))
+    one_mul = torch.tensor([[quotient.LOAD, 0, 0, 0], [quotient.LOAD, 1, 1, 1],
+                            [quotient.MUL, 2, 0, 1]], dtype=torch.int32)
+    hc.hc_quotient_forest(_ptr(leaves), ext_n, _ptr(consts), _ptr(one_mul), 3,
+                          3, 2, _ptr(out))
+    rinv = rc.finv(FR.r, rc.FR)
+    assert field.to_ints(out) == [
+        vals[i] * vals[ext_n + (i + 1) % ext_n] * rinv % rc.FR
+        for i in range(ext_n)]
+
+
+def _host_ntt(hc, a, k, inverse, log_tile, in_scale=None, out_scale=None):
+    def launch(*args):
+        return hc.hc_ntt_pass(*args)
+    return ntt.run_passes(launch, a.contiguous(), k,
+                          ntt._twiddles(k, inverse, "cpu"), in_scale,
+                          out_scale, log_tile)
+
+
+@pytest.mark.parametrize("k,log_tile", [(1, 4), (3, 2), (3, 4), (8, 5),
+                                        (8, 3), (11, 6), (11, 4)])
+def test_ntt_host(hc, k, log_tile):
+    """The transform's tile routine and pass indexing at a small tile, so
+    that a transform crosses two passes (three at k = 8 over 2^3 and k = 11
+    over 2^4): forward and inverse with 1/n, two columns, equal to the plain
+    stage-by-stage transform."""
+    assert len(ntt.passes(k, log_tile)) == -(-k // log_tile)
+    n = 1 << k
+    rng = np.random.default_rng(k)
+    vals = [int.from_bytes(rng.bytes(32), "little") % rc.FR
+            for _ in range(2 * n)]
+    vals[:3] = [0, 1, rc.FR - 1]
+    a = field.from_ints(FR, vals, "cpu").reshape(2, n, 8)
+    assert torch.equal(_host_ntt(hc, a, k, False, log_tile),
+                       ntt.ntt_plain(a, k))
+    n_inv = field.const_mont(FR, rc.finv(n, rc.FR), "cpu")[None]
+    assert torch.equal(_host_ntt(hc, a, k, True, log_tile, out_scale=n_inv),
+                       ntt.intt_plain(a, k))
+
+
+@pytest.mark.parametrize("k,log_tile,n_in", [(3, 2, 8), (8, 5, 64),
+                                             (8, 5, 100), (11, 6, 512)])
+def test_coset_ntt_host(hc, k, log_tile, n_in):
+    """The scale tables on the first pass's loads and the last pass's
+    stores, a short input read as zero-padded, and Montgomery form out of the
+    forward transform and into the inverse one."""
+    n, g = 1 << k, rc.FR_GENERATOR
+    rng = np.random.default_rng(100 + k)
+    a = field.from_ints(FR, [int.from_bytes(rng.bytes(32), "little") % rc.FR
+                             for _ in range(n_in)], "cpu")[None]
+    gpow = ntt.power_table(g, n, "cpu", mont=True)
+    got = _host_ntt(hc, a, k, False, log_tile, in_scale=gpow)
+    assert torch.equal(got, ntt.coset_ntt_plain(a, k, g))
+    got_m = _host_ntt(hc, a, k, False, log_tile,
+                      in_scale=field.to_mont(FR, gpow))
+    assert torch.equal(got_m, field.to_mont(FR, got))
+    assert torch.equal(got_m, ntt.coset_ntt_plain(a, k, g, out_mont=True))
+    back = field.mul_const(FR, ntt.power_table(rc.finv(g, rc.FR), n, "cpu"),
+                           rc.finv(n, rc.FR))
+    want = ntt.coset_intt_plain(got, k, g)
+    assert torch.equal(want[0, :n_in], a[0]) and not want[0, n_in:].any()
+    assert torch.equal(_host_ntt(hc, got, k, True, log_tile,
+                                 out_scale=field.to_mont(FR, back)), want)
+    assert torch.equal(_host_ntt(hc, got_m, k, True, log_tile,
+                                 out_scale=back), want)
+
+
+def _scan_oracle(op, p, rows_a, rows_b, reverse):
+    out = []
+    for ra, rb in zip(rows_a, rows_b):
+        if reverse:
+            ra, rb = ra[::-1], rb[::-1]
+        acc, row = {"mul": 1, "add": 0, "affine": 0}[op], []
+        for x, y in zip(ra, rb):
+            acc = {"mul": acc * x, "add": acc + x, "affine": x * acc + y}[op] % p
+            row.append(acc)
+        out.append(row[::-1] if reverse else row)
+    return out
+
+
+@pytest.mark.parametrize("reverse", [0, 1], ids=["forward", "reverse"])
+@pytest.mark.parametrize("fname", ["Fr", "Fq"])
+@pytest.mark.parametrize("op", ["mul", "add", "affine"])
+@pytest.mark.parametrize("n,run", [(1, 8), (5, 8), (33, 8), (255, 3)])
+def test_field_scan_host(hc, n, run, op, fname, reverse):
+    """The blocked field scan's run routines (fs_run_local, fs_run_apply,
+    fs_offset) laid out as the kernel lays them out: equal to the plain
+    version and to the oracle's running product, sum or recurrence."""
+    F = FR if fname == "Fr" else FQ
+    p = F.modulus
+    va = _vals(p, 7 * n + run, 2 * n + 6)[:2 * n]
+    vb = _vals(p, 9 * n + run, 2 * n + 6)[-2 * n:]
+    a = field.from_ints(F, va, "cpu").reshape(2, n, 8)
+    b = field.from_ints(F, vb, "cpu").reshape(2, n, 8)
+    out = torch.empty_like(a)
+    assert hc.hc_field_scan(F.fid, frops._FS_OPS[op], _ptr(a), _ptr(b),
+                            _ptr(out), 2, n, run, reverse) == 0
+    want = _scan_oracle(op, p, [va[:n], va[n:]], [vb[:n], vb[n:]], reverse)
+    assert field.to_ints(out) == want[0] + want[1]
+    assert torch.equal(out, frops.field_scan_plain(
+        a, op, bool(reverse), b if op == "affine" else None, F))
+
+
+@pytest.mark.parametrize("op", ["mul", "add", "affine"])
+@pytest.mark.parametrize("n,lanes", [(1, 128), (33, 128), (1000, 128),
+                                     (1000, 7)])
+def test_field_row_sum_host(hc, n, lanes, op):
+    """The reduce half (fs_run_total over `lanes` consecutive chunks,
+    combined in order): the row's sum equal to the plain pairwise halving,
+    and its product or composed map to the oracle."""
+    p = rc.FR
+    va, vb = _vals(p, 11 * n, 2 * n + 6)[:2 * n], _vals(p, 13 * n, 2 * n + 6)[-2 * n:]
+    a = field.from_ints(FR, va, "cpu").reshape(2, n, 8)
+    b = field.from_ints(FR, vb, "cpu").reshape(2, n, 8)
+    out_a = torch.empty((2, 8), dtype=torch.int32)
+    out_b = torch.empty((2, 8), dtype=torch.int32)
+    assert hc.hc_field_reduce(0, frops._FS_OPS[op], _ptr(a), _ptr(b),
+                              _ptr(out_a), _ptr(out_b), 2, n, lanes) == 0
+    rows = [va[:n], va[n:]]
+    if op == "add":
+        assert field.to_ints(out_a) == [sum(r) % p for r in rows]
+        assert torch.equal(out_a, frops.tree_sum_batched_plain(a))
+        return
+    prods = []
+    for r in rows:
+        acc = 1
+        for x in r:
+            acc = acc * x % p
+        prods.append(acc)
+    assert field.to_ints(out_a) == prods
+    if op == "affine":
+        last = _scan_oracle(op, p, rows, [vb[:n], vb[n:]], False)
+        assert field.to_ints(out_b) == [last[0][-1], last[1][-1]]

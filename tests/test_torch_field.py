@@ -69,6 +69,32 @@ def test_neg_inv_pow(fname):
         x * 12345 % p for x in a]
 
 
+@pytest.mark.parametrize("fname", ["Fr", "Fq"])
+def test_mul_mont_and_conversions(fname):
+    """`mul_mont` is a * b / R: with an operand that holds v * R it is the
+    canonical product a * v, as `mul_const` uses it; `to_mont` and
+    `from_mont` convert a whole tensor."""
+    F, J, p = FIELDS[fname]
+    a, v = _pairs(p, seed=21, count=24)
+    R = 1 << 256
+    ta = field.from_ints(F, a, "cpu")
+    assert F.r == R % p and field.OP_NAMES[field.OP_MULM] == "mulm"
+    tv = field.from_ints(F, [x * R for x in v], "cpu")
+    want = [x * y % p for x, y in zip(a, v)]
+    assert field.to_ints(field.mul_mont(F, ta, tv)) == want
+    assert want == [int(x) for x in J.to_ints(
+        J.mul(J.from_ints(a), J.from_ints(v)))]
+    assert field.to_ints(field.mul_mont(F, ta, field.from_ints(F, v, "cpu"))) \
+        == [x * y * pow(R, -1, p) % p for x, y in zip(a, v)]
+    assert field.to_ints(field.to_mont(F, ta)) == [x * R % p for x in a]
+    assert torch.equal(field.from_mont(F, field.to_mont(F, ta)), ta)
+    assert field.to_int(field.const_mont(F, 7, "cpu")) == 7 * R % p
+    assert field.to_ints(field.mul_const(F, ta, p - 2)) == [
+        x * (p - 2) % p for x in a]
+    assert torch.equal(field.binop(F, "mulm", ta, tv),
+                       field.mul_mont_plain(F, ta, tv))
+
+
 def test_canonical_bytes_roundtrip():
     rng = np.random.default_rng(3)
     vals = _adversarial(rc.FR, rng, 20)

@@ -11,7 +11,7 @@ from halo2_zkcert_tpu.ops import frops as jfrops
 from halo2_zkcert_tpu.ops.field import Fr as JFr
 from halo2_zkcert_tpu.utils import refcrypto as rc
 from halo2_zkcert_tpu_torch.ops import field, frops
-from halo2_zkcert_tpu_torch.ops.field import FR
+from halo2_zkcert_tpu_torch.ops.field import FQ, FR
 
 torch.set_num_threads(2)
 
@@ -63,6 +63,67 @@ def test_affine_scan():
         acc = (mi * acc + bi) % rc.FR
         want.append(acc)
     assert got == want
+
+
+def _scan_ints(op, p, a, b, reverse):
+    if reverse:
+        a, b = a[::-1], b[::-1]
+    acc, out = {"mul": 1, "add": 0, "affine": 0}[op], []
+    for x, y in zip(a, b):
+        acc = {"mul": acc * x, "add": acc + x, "affine": x * acc + y}[op] % p
+        out.append(acc)
+    return out[::-1] if reverse else out
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("fname", ["Fr", "Fq"])
+@pytest.mark.parametrize("op", ["mul", "add", "affine"])
+@pytest.mark.parametrize("n", [1, 5, 33, 1025])
+def test_field_scan(n, op, fname, reverse):
+    """`field_scan` for each operation, from either end, in both fields,
+    two rows at once: against the integers, and forward in Fr against the
+    JAX package's prefix product and affine scan."""
+    F, p = (FR, rc.FR) if fname == "Fr" else (FQ, rc.FQ)
+    rng = np.random.default_rng(n)
+    va = [[int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+          for _ in range(2)]
+    vb = [[int.from_bytes(rng.bytes(32), "little") % p for _ in range(n)]
+          for _ in range(2)]
+    va[0][:3] = [p - 1, 1, 0][:n]
+    a = field.from_ints(F, va[0] + va[1], "cpu").reshape(2, n, 8)
+    b = field.from_ints(F, vb[0] + vb[1], "cpu").reshape(2, n, 8)
+    got = frops.field_scan(a, op, reverse, b if op == "affine" else None, F)
+    assert field.to_ints(got.reshape(-1, 8)) == sum(
+        (_scan_ints(op, p, va[r], vb[r], reverse) for r in range(2)), [])
+    if F is FR and not reverse and n <= 33:
+        if op == "mul":
+            want = jfrops.prefix_product_batched(jnp.stack([_j(v) for v in va]))
+            assert field.to_ints(got.reshape(-1, 8)) == _ints(
+                want.reshape(-1, 33))
+        elif op == "affine":
+            assert field.to_ints(got[1]) == _ints(
+                jfrops.affine_scan(_j(va[1]), _j(vb[1])))
+
+
+def test_field_scan_wants_b_for_the_affine_scan_only():
+    a = _t([1, 2, 3])[None]
+    with pytest.raises(ValueError, match="affine"):
+        frops.field_scan(a, "affine")
+    with pytest.raises(ValueError, match="affine"):
+        frops.field_scan(a, "mul", b=a)
+
+
+@pytest.mark.parametrize("n", [1, 5, 33, 1025])
+def test_field_row_sum(n):
+    rng = np.random.default_rng(50 + n)
+    rows = [_rand(rng, n) for _ in range(3)]
+    a = _t(sum(rows, [])).reshape(3, n, 8)
+    got = field.to_ints(frops.field_row_sum(a))
+    assert got == [sum(r) % rc.FR for r in rows]
+    assert got == field.to_ints(frops.tree_sum_batched(a))
+    if n <= 33:
+        assert got == _ints(jfrops.tree_sum_batched(
+            jnp.stack([_j(r) for r in rows])))
 
 
 @pytest.mark.parametrize("n", [1, 7, 32])

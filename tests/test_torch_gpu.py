@@ -1,5 +1,6 @@
-"""Kernels K1-K6 and the blocked point scan on the card against their plain
-versions, at small, ragged and main-path shapes.
+"""Kernels K1-K6, the blocked scans of points and of field elements and the
+transform passes on the card against their plain versions, at small, ragged
+and main-path shapes.
 
 Marked `gpu`: each test decides inside itself whether a CUDA device exists
 and skips without one.  On a machine with a card:
@@ -10,7 +11,8 @@ import numpy as np
 import pytest
 import torch
 
-from halo2_zkcert_tpu_torch.ops import curve, field, kernels, msm_fb, scan
+from halo2_zkcert_tpu_torch.ops import (curve, field, frops, kernels, msm_fb,
+                                        ntt, scan)
 from halo2_zkcert_tpu_torch.ops.field import FQ, FR
 from halo2_zkcert_tpu_torch.plonk import quotient
 from halo2_zkcert_tpu_torch.utils import refcrypto as rc
@@ -33,7 +35,7 @@ def _rand(F, seed, count, device):
 
 
 @pytest.mark.parametrize("fname", ["Fr", "Fq"])
-@pytest.mark.parametrize("op", ["mul", "add", "sub"])
+@pytest.mark.parametrize("op", ["mul", "add", "sub", "mulm"])
 def test_field_binop_kernel(fname, op):
     dev = _device()
     F = FR if fname == "Fr" else FQ
@@ -193,6 +195,101 @@ def test_fixed_base_msm_on_card():
         assert torch.equal(got, curve.to_affine(msm.msm_many(base, cols)))
 
 
+@pytest.mark.parametrize("k", [0, 1, 3, 8, 10, 11, 13, 17])
+def test_ntt_kernel(k):
+    """Every transform against its plain version, three columns at once: one
+    launch up to 2^LOG_TILE, two above; the zero padding, and Montgomery
+    form out of the coset transform and into its inverse."""
+    dev = _device()
+    n, g = 1 << k, rc.FR_GENERATOR
+    a = _rand(FR, k, 3 * n, dev).reshape(3, n, 8)
+    before = kernels.launches["ntt"]
+    got = ntt.ntt(a, k)
+    assert kernels.launches["ntt"] - before == len(ntt.passes(k)) == (
+        1 if k <= ntt.LOG_TILE else 2)
+    assert torch.equal(got, ntt.ntt_plain(a, k))
+    assert torch.equal(ntt.intt(a, k), ntt.intt_plain(a, k))
+    short = a[:, :max(1, n // 4 + 1)]
+    ext = ntt.coset_ntt(short, k, g)
+    assert torch.equal(ext, ntt.coset_ntt_plain(short, k, g))
+    ext_m = ntt.coset_ntt(short, k, g, out_mont=True)
+    assert torch.equal(ext_m, field.to_mont(FR, ext))
+    assert torch.equal(ntt.coset_intt(ext, k, g),
+                       ntt.coset_intt_plain(ext, k, g))
+    back = ntt.coset_intt(ext_m, k, g, in_mont=True)
+    assert torch.equal(back[:, :short.shape[1]], short)
+    assert not back[:, short.shape[1]:].any()
+
+
+FIELD_SCAN_SHAPES = [(3, 1), (2, 5), (2, 33), (2, 1024), (2, 1025),
+                     (3, 5001), (3, 1 << 17), (1, 3 << 17)]
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("fname", ["Fr", "Fq"])
+@pytest.mark.parametrize("op", ["mul", "add", "affine"])
+@pytest.mark.parametrize("B,n", FIELD_SCAN_SHAPES)
+def test_field_scan_kernel(B, n, op, fname, reverse):
+    """The blocked field scan against its plain version, exactly; one launch
+    for a row of one tile, two for any longer one."""
+    dev = _device()
+    F = FR if fname == "Fr" else FQ
+    a = _rand(F, n, B * n, dev).reshape(B, n, 8)
+    b = _rand(F, n + 1, B * n, dev).reshape(B, n, 8) if op == "affine" \
+        else None
+    if op != "add":
+        a[0, 0] = a[0, -1]          # no zero: the products stay telling
+    before = kernels.launches["field_scan"]
+    got = frops.field_scan(a, op, reverse, b, F)
+    assert kernels.launches["field_scan"] - before == (
+        1 if n <= frops.TILE else 2)
+    assert torch.equal(got, frops.field_scan_plain(a, op, reverse, b, F))
+
+
+@pytest.mark.parametrize("limit,blocks", [("MAX_BLOCKS_A_ROW", 2),
+                                          ("BLOCKS_WANTED", 4)])
+@pytest.mark.parametrize("op", ["mul", "affine"])
+def test_field_scan_kernel_spans_of_several_tiles(monkeypatch, limit, blocks,
+                                                  op):
+    """Rows whose blocks walk several tiles and carry what came before."""
+    dev = _device()
+    monkeypatch.setattr(frops, limit, blocks)
+    a = _rand(FR, 9, 2 * 5001, dev)[3:].reshape(1, -1, 8)[:, :9998] \
+        .reshape(2, 4999, 8)
+    b = a.flip(1).contiguous() if op == "affine" else None
+    assert frops._span(2, 4999) == (3 if blocks == 2 else 2) * frops.TILE
+    for reverse in (False, True):
+        assert torch.equal(frops.field_scan(a, op, reverse, b),
+                           frops.field_scan_plain(a, op, reverse, b))
+    assert torch.equal(frops.field_row_sum(a),
+                       frops.tree_sum_batched_plain(a))
+
+
+@pytest.mark.parametrize("B,n", FIELD_SCAN_SHAPES + [(16, 1 << 17)])
+def test_field_row_sum_kernel(B, n):
+    dev = _device()
+    a = _rand(FR, n + 2, B * n, dev).reshape(B, n, 8)
+    before = kernels.launches["field_row_sum"]
+    got = frops.field_row_sum(a)
+    assert kernels.launches["field_row_sum"] - before == (
+        1 if n <= frops.TILE else 2)
+    assert torch.equal(got, frops.tree_sum_batched_plain(a))
+
+
+def test_batch_inv_and_powers_on_card():
+    """What the prover builds on the scans: inverses in both fields and a
+    power table, against the integers."""
+    dev = _device()
+    for F in (FR, FQ):
+        a = _rand(F, 5, 3000, dev)[3:]
+        inv = frops.batch_inv(a, F)
+        assert torch.equal(field.mul(F, a, inv),
+                           field.one(dev, (a.shape[0],)))
+    x = _rand(FR, 6, 4, dev)[3]
+    assert field.to_ints(frops.powers(x, 2000)) == [
+        pow(field.to_int(x), i, rc.FR) for i in range(2000)]
+
+
 def test_quotient_kernel():
     dev = _device()
     from halo2_zkcert_tpu_torch.plonk import ADVICE, Column, ConstraintSystem
@@ -207,5 +304,15 @@ def test_quotient_kernel():
     L = len(quotient.leaf_layout(cs))
     leaves = _rand(FR, 3, L * 64, dev).reshape(L, 64, 8)
     consts = tape.const_table(_rand(FR, 4, tape.num_challenges, dev))
-    assert torch.equal(quotient.quotient_forest(leaves, consts, tape),
-                       quotient.quotient_forest_plain(leaves, consts, tape))
+    before = kernels.launches["quotient_forest"]
+    got = quotient.quotient_forest(leaves, consts, tape)
+    assert kernels.launches["quotient_forest"] == before + 1
+    assert torch.equal(got, quotient.quotient_forest_plain(leaves, consts,
+                                                           tape))
+    # every instantiated slot count runs the same tape
+    for slots in quotient.SLOT_SIZES:
+        if slots >= tape.num_slots:
+            wide = quotient.Tape(tape.ins, tape.out_slot, tape.consts, slots,
+                                 tape.num_challenges)
+            assert torch.equal(quotient.quotient_forest(leaves, consts, wide),
+                               got)

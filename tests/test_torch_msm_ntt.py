@@ -61,6 +61,50 @@ def test_ntt_is_the_dft_and_batches_over_columns():
     assert got == [a * pow(5, i, rc.FR) % rc.FR for i, a in enumerate(cols[0])]
 
 
+@pytest.mark.parametrize("k", [1, 3, 8, 11])
+def test_ntt_batched_padded_mont_match_jax(k):
+    """Two columns at once against the JAX package's transforms (its batch
+    axis is the middle one); a short input stands for its zero-padded self;
+    `out_mont` gives x * R and `in_mont` takes it back."""
+    n, g = 1 << k, rc.FR_GENERATOR
+    rng = np.random.default_rng(20 + k)
+    cols = [_rand(rng, n) for _ in range(2)]
+    t = field.from_ints(FR, cols[0] + cols[1], "cpu").reshape(2, n, 8)
+    j = jnp.stack([JFr.from_ints(c) for c in cols], axis=1)
+    for mine, ref in ((ntt.ntt(t, k), jntt.ntt(j, k)),
+                      (ntt.intt(t, k), jntt.intt(j, k)),
+                      (ntt.coset_ntt(t, k, g), jntt.coset_ntt(j, k, g)),
+                      (ntt.coset_intt(t, k, g), jntt.coset_intt(j, k, g))):
+        for c in range(2):
+            assert field.to_ints(mine[c]) == _ints(ref[:, c])
+    short = max(1, n // 2 - 1)
+    padded = [c[:short] + [0] * (n - short) for c in cols]
+    jp = jnp.stack([JFr.from_ints(c) for c in padded], axis=1)
+    ext = ntt.coset_ntt(t[:, :short], k, g)
+    want = jntt.coset_ntt(jp, k, g)
+    for c in range(2):
+        assert field.to_ints(ext[c]) == _ints(want[:, c])
+    ext_m = ntt.coset_ntt(t[:, :short], k, g, out_mont=True)
+    assert field.to_ints(ext_m.reshape(-1, 8)) == [
+        x * FR.r % rc.FR for x in field.to_ints(ext.reshape(-1, 8))]
+    back = ntt.coset_intt(ext_m, k, g, in_mont=True)
+    assert field.to_ints(back.reshape(-1, 8)) == padded[0] + padded[1]
+
+
+def test_passes_cover_every_stage_once():
+    """The pass plan of the transform kernel: every stage in exactly one
+    pass, a tile never above 2^log_tile elements, two passes at the prover's
+    sizes."""
+    for k in range(0, 24):
+        for log_tile in (2, 5, 10):
+            plan = ntt.passes(k, log_tile)
+            assert [s0 for s0, _, _ in plan] == [
+                sum(t for _, t, _ in plan[:i]) for i in range(len(plan))]
+            assert sum(t for _, t, _ in plan) == k
+            assert all(t + a <= log_tile and a <= s0 for s0, t, a in plan)
+    assert len(ntt.passes(17)) == len(ntt.passes(19)) == 2
+
+
 def _msm_inputs(seed, n):
     rng = np.random.default_rng(seed)
     pts = [rc.g1_to_affine(rc.g1_mul(G, s)) for s in _rand(rng, n)]

@@ -1,7 +1,9 @@
 """The port's quotient tape (plonk/quotient.py, kernel K4 by its plain
 interpreter) against the JAX package's pointwise quotient evaluator
 (plonk/prover.py `_make_pointwise`), on the toy circuit of
-tests/test_plonk_e2e.py with the same seeded extended-domain inputs."""
+tests/test_plonk_e2e.py with the same seeded extended-domain inputs.  The
+tape's leaves, constants and result are in Montgomery form; the JAX side's
+are plain residues."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -62,8 +64,13 @@ def test_tape_matches_jax_pointwise(toy_cs, seed):
     tape = quotient.compile_tape(cs, n, ext_n)
     leaves = field.from_ints(FR, vals, "cpu").reshape(L, ext_n, 8)
     chal = field.from_ints(FR, chal_vals, "cpu")
-    got = field.to_ints(quotient.quotient_forest(
-        leaves, tape.const_table(chal), tape))
+    consts = tape.const_table(chal)
+    assert field.to_ints(consts) == [
+        v * FR.r % rc.FR for v in tape.consts + chal_vals]
+    got_mont = quotient.quotient_forest(field.to_mont(FR, leaves), consts, tape)
+    assert torch.equal(got_mont, quotient.quotient_forest_plain(
+        field.to_mont(FR, leaves), consts, tape))
+    got = field.to_ints(field.from_mont(FR, got_mont))
 
     cols = [JFr.from_ints(vals[i * ext_n:(i + 1) * ext_n]) for i in range(L)]
 
@@ -86,7 +93,9 @@ def test_tape_matches_jax_pointwise(toy_cs, seed):
 
 def test_rsa_tape_fits_the_kernel():
     """The RSA k=17 forest lowers to a tape within the kernel's slot
-    budget, with its rotations as row offsets of the extended domain."""
+    budget, with its rotations as row offsets of the extended domain; its
+    own numbers are pinned, so a change of the lowering that moves the
+    kernel's work a row (74 products) or its slots is seen."""
     import json
     import os
     from halo2_zkcert_tpu_torch.plonk.keygen import vk_from_dict
@@ -95,7 +104,15 @@ def test_rsa_tape_fits_the_kernel():
         vk = vk_from_dict(json.load(f))
     dom = vk.domain("cpu")
     tape = quotient.compile_tape(vk.cs, dom.n, dom.extended_n)
-    assert tape.num_slots <= quotient.MAX_SLOTS
+    assert tape.num_slots <= quotient.MAX_SLOTS == quotient.SLOT_SIZES[-1]
+    ops = tape.ins[:, 0].tolist()
+    assert (len(ops), tape.num_slots) == (184, 17)
+    assert tape.num_slots in quotient.SLOT_SIZES
+    assert [ops.count(o) for o in (quotient.LOAD, quotient.CONST, quotient.ADD,
+                                   quotient.SUB, quotient.MUL)] == [
+        43, 12, 44, 11, 74]
+    assert len(quotient.leaf_layout(vk.cs)) == 28
+    assert len(tape.consts) + tape.num_challenges == 12
     assert tape.ins.dtype == np.int32 and tape.ins.shape[1] == 4
     loads = tape.ins[tape.ins[:, 0] == quotient.LOAD]
     assert set((loads[:, 3] % (dom.extended_n // dom.n)).tolist()) == {0}

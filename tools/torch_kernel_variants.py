@@ -1,6 +1,8 @@
-"""Build variants of the port's point kernels and time each on the card.
+"""Build variants of the port's kernels and time each on the card.
 
-    python3 tools/torch_kernel_variants.py        # needs one CUDA card
+    python3 tools/torch_kernel_variants.py [source ...]   # needs one CUDA card
+
+(every source of VARIANTS unless some are named, e.g. `ntt quotient_forest`).
 
 A variant is a copy of one CUDA source of halo2_zkcert_tpu_torch/csrc with a
 few constants or one line changed by text substitution (a substitution that
@@ -12,7 +14,11 @@ events, warm).  Prints the card's name and power limit, each variant's
 registers and spills, and one JSON line a variant.  The point scan's
 variants are also compared with the source as it stands, as affine points.
 
-Used to decide the tile shape of point_scan.cu, the staging of scan_madd.cu
+The transform, field-scan and quotient variants go through chip_smoke.py's
+own checks, so each is also held against its plain version, exactly.
+
+Used to decide the tile shape of point_scan.cu, the staging of scan_madd.cu,
+the tile and block size of ntt.cu, where quotient_forest.cu keeps its slots,
 and whether the Montgomery product is inlined or called.
 """
 from __future__ import annotations
@@ -31,9 +37,14 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
 import chip_smoke as cs  # noqa: E402
-from halo2_zkcert_tpu_torch.ops import curve, kernels, msm_fb, scan  # noqa: E402
+from halo2_zkcert_tpu_torch.ops import (curve, frops, kernels,  # noqa: E402
+                                        msm_fb, ntt, scan)
 
 CALL = "#define H2T_MONT_MUL_CALL"
+HEADER = '#include "bn254.cuh"'
+LOG_TILE, NTT_THREADS = ("constexpr int NTT_LOG_TILE = 10;",
+                         "constexpr int NTT_THREADS = 256;")
+FS_PPT = "constexpr int FS_PPT = 8;"
 PPT, THREADS = "constexpr int PS_PPT = 8;", "constexpr int PS_THREADS = 128;"
 # source -> variant -> [(old text, new text)], and the tile of the variant
 VARIANTS = {
@@ -57,17 +68,40 @@ VARIANTS = {
     },
     "point_ops": {
         "as_built": [],
-        "product_called": [('#include "bn254.cuh"',
-                            CALL + '\n#include "bn254.cuh"')],
+        "product_called": [(HEADER, CALL + "\n" + HEADER)],
+    },
+    "ntt": {
+        "as_built": [],
+        "product_called": [(HEADER, CALL + "\n" + HEADER)],
+        "tile_2^11": [(LOG_TILE, LOG_TILE.replace("10", "11"))],
+        "tile_2^9": [(LOG_TILE, LOG_TILE.replace("10", "9"))],
+        "512_threads": [(NTT_THREADS, NTT_THREADS.replace("256", "512"))],
+        "128_threads": [(NTT_THREADS, NTT_THREADS.replace("256", "128"))],
+    },
+    "field_scan": {
+        "as_built": [],
+        "product_called": [(HEADER, CALL + "\n" + HEADER)],
+        "4_elements_a_thread": [(FS_PPT, FS_PPT.replace("8", "4"))],
+    },
+    "quotient_forest": {
+        "as_built": [],
+        "slots_shared": [(HEADER, "#define H2T_TAPE_SLOTS_SHARED\n" + HEADER)],
+        "product_called": [(HEADER, CALL + "\n" + HEADER)],
+        "slots_shared_product_called": [
+            (HEADER, "#define H2T_TAPE_SLOTS_SHARED\n" + CALL + "\n" + HEADER)],
     },
 }
 TILES = {"6_points_a_thread": 768, "4_points_a_thread": 512}
+NTT_LOG_TILES = {"tile_2^11": 11, "tile_2^9": 9}
+FS_TILES = {"4_elements_a_thread": 512}
 
 
-def build(root: str) -> dict:
-    """Compile every variant, all at once; (source, variant) -> library."""
+def build(root: str, sources) -> dict:
+    """Compile every variant of `sources`, all at once; (source, variant) ->
+    library."""
     procs = []
-    for src, variants in VARIANTS.items():
+    for src in sources:
+        variants = VARIANTS[src]
         text = (kernels.CSRC / f"{src}.cu").read_text()
         for name, subs in variants.items():
             out = text
@@ -113,7 +147,7 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(17)
     with tempfile.TemporaryDirectory() as root:
-        libs = build(root)
+        libs = build(root, sys.argv[1:] or list(VARIANTS))
         print(cs.card_line(), flush=True)
         B, nb = 4, (1 << 16) - 1
         P = cs.sample_points(dev, B * nb, rng).reshape(B, nb, 3, 8)
@@ -154,7 +188,7 @@ def main() -> int:
                          lambda: scan.point_row_sum(P), 10),
                         ("scan_32x131072_ms",
                          lambda: scan.point_scan(wide), 3)):
-                    row[key] = cs.cuda_ms(fn, it)
+                    row[key] = cs.kernel_ms(fn, it)[0]
             elif src == "scan_madd":
                 for key, fn, it in (
                         ("dense_32768x64_ms", lambda: msm_fb.scan_madd(xy), 10),
@@ -166,11 +200,21 @@ def main() -> int:
                          lambda: msm_fb.scan_madd(xy4, d4), 5),
                         ("digits_16408x8_ms",
                          lambda: msm_fb.scan_madd(xys, ds), 10)):
-                    row[key] = cs.cuda_ms(fn, it)
+                    row[key] = cs.kernel_ms(fn, it)[0]
+            elif src in ("ntt", "field_scan", "quotient_forest"):
+                ntt.LOG_TILE = NTT_LOG_TILES.get(name, 10)
+                frops.TILE = FS_TILES.get(name, 1024)
+                recs = {"ntt": lambda: cs.check_ntt(dev, 17, 8, rng),
+                        "field_scan": lambda: cs.check_field_scans(
+                            dev, 1 << 17, rng),
+                        "quotient_forest": lambda: [cs.check_quotient(
+                            dev, os.path.join(REPO, "build", "rsa_1.pk.vk"),
+                            rng)]}[src]()
+                row = {r["name"] + "_ms": r["ms"] for r in recs}
             else:
-                row["point_add_131072_ms"] = cs.cuda_ms(
+                row["point_add_131072_ms"], _ = cs.kernel_ms(
                     lambda: curve.add(flat, Q), 20)
-                row["point_double_131072_ms"] = cs.cuda_ms(
+                row["point_double_131072_ms"], _ = cs.kernel_ms(
                     lambda: curve.double(flat), 20)
             print(json.dumps({"source": src, "variant": name, **row}),
                   flush=True)
