@@ -9,31 +9,40 @@ Phases, each printing its own line:
      shapes of the main path, and time both: the kernel's device time with
      its launches queued behind a spin of the device (`kernel_ms`; "ms" in
      the record) beside its time as Python issues it ("issued_ms"), the
-     plain version as issued.  The elementwise kernels, the
-     transform passes, the blocked scans and row sums of field elements, the
-     quotient (Montgomery form in and out) and the mixed-add row scan give
-     their plain version's words exactly (with digits, in the slots the
-     scan's contract defines); the blocked point scan and row sum add in
-     another order than their plain versions, so they are compared after
-     curve.to_affine, exactly (canonical affine words are unique);
-  3. build the k=17 SRS on the card from the default tau and the fixed-base
-     window tables of both bases; commit the committed RSA proving key's 12
-     fixed and 3 sigma columns through the variable-base and through the
-     fixed-base MSM: both must equal the commitments of build/rsa_1.pk.vk;
-     then a fixed-base MSM over 5001 points (a pair count that is not whole
-     scan rows, the path of the mixed-add kernel) against the variable-base
+     plain version as issued (once, where it takes seconds).  The
+     elementwise kernels, the transform passes, the blocked scans and row
+     sums of field elements, the quotient (Montgomery form in and out), the
+     mixed-add row scan and the chains of the group law (window tables, the
+     Horner step, the fixed-base multiplication) give their plain version's
+     words exactly (with digits, in the slots the scan's contract defines);
+     the blocked scans and row sums of points add in another order than
+     their plain versions, so they are compared after curve.to_affine,
+     exactly (canonical affine words are unique);
+  3. build the k=17 SRS on the card from the default tau (the path
+     "srs_setup") and the fixed-base window tables of both bases
+     ("table_build"); commit the committed RSA proving key's 12 fixed and 3
+     sigma columns through the variable-base and through the fixed-base MSM:
+     both must equal the commitments of build/rsa_1.pk.vk; then a fixed-base
+     MSM over 5001 points ("ragged_msm": a pair count that is not whole scan
+     rows, the path of the scan of affine points) against the variable-base
      MSM of the same points and scalars;
   4. prove the RSA-2048 k=17 link as the port's bench does, on the fixed
      base (the default: a warm-up proof, then a timed one) and once with the
      variable base forced; each proof must verify, a tampered copy must be
      rejected, and the bytes must equal build/rsa_1.proof;
-  5. the kernels' launch counts on each driven path: every kernel must have
-     been launched on one of them, and the fixed-base proof must launch
-     point_add, point_scan and point_row_sum under 100 times together,
-     field_binop under 300 times and ntt at most 8 times (its scans and
-     transforms are blocked kernels, not a launch a level or a stage).  The
-     [shapes] lines give the shapes the point kernels, the transforms and
-     the field scans were called with on each proof.
+  5. the kernels' launch counts on each driven path, each counted from 0
+     just before the path and read just after: each TPU kernel (a record's
+     "replaces") must have been launched in one of its forms on one of
+     them; the fixed-base proof must launch point_add, point_scan and
+     point_row_sum under 100 times together, field_binop under 300 times,
+     ntt at most 8 times and none of the chain kernels; the variable-base
+     proof no point_double, at most 7 point_horner and 10 point_add; the
+     table build no point_double and at most 2 point_windows; the SRS no
+     point_double and no point_add; the ragged MSM two point_scan_affine
+     (its one local scan), three point_add (its one bucket extraction) and
+     no point_add_mixed.  The [shapes] lines give the shapes the point
+     kernels, the transforms and the field scans were called with on each
+     path.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -116,6 +125,20 @@ def kernel_ms(fn, iters: int, warmup: int = 2) -> tuple:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters, issued
+
+
+def timed_once(fn) -> tuple:
+    """(fn(), its device milliseconds) of one call (CUDA events): for plain
+    versions that take seconds, timed on the call whose result is
+    compared."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return out, t0.elapsed_time(t1)
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -275,18 +298,23 @@ def check_field_scans(device, n: int, rng) -> list:
     return recs
 
 
+def sample_affine(device, n: int, rng) -> torch.Tensor:
+    """(n, 2, 8) affine points of G1 drawn from 64 host multiples of G."""
+    from halo2_zkcert_tpu_torch.ops import curve
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    G = rc.g1_from_affine(rc.G1_GEN)
+    aff = curve.points_to_device(
+        [rc.g1_to_affine(rc.g1_mul(G, int(s)))
+         for s in rng.integers(1, 1 << 62, size=64)], device)
+    return aff[torch.from_numpy(rng.integers(0, 64, size=n)).to(device)]
+
+
 def sample_points(device, n: int, rng) -> torch.Tensor:
     """(n, 3, 8) projective points of G1: 64 host multiples of G, each row
     scaled by its own random Z, with the identity and a few P, -P pairs."""
     from halo2_zkcert_tpu_torch.ops import curve, field
     from halo2_zkcert_tpu_torch.ops.field import FQ
-    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
-    G = rc.g1_from_affine(rc.G1_GEN)
-    base = [rc.g1_to_affine(rc.g1_mul(G, int(s)))
-            for s in rng.integers(1, 1 << 62, size=64)]
-    aff = curve.points_to_device(base, device)
-    P = curve.from_affine(aff[torch.from_numpy(rng.integers(0, 64, size=n))
-                              .to(device)])
+    P = curve.from_affine(sample_affine(device, n, rng))
     z = random_canonical(rng, n, device, FQ.modulus)
     z[:3] = field.one(device, (3,))                # no zero Z from the edges
     P = field.binop_plain(FQ, "mul", P, z[:, None, :])
@@ -433,6 +461,96 @@ def check_scans(device, B: int, n_buckets: int, n_totals: int, rng) -> list:
     return recs
 
 
+def check_chains(device, n_points: int, n_scalars: int, rng) -> list:
+    """The chains of the group law at the main path's shapes: the window
+    tables of a 2^17-point slice of a basis (16 windows of 16 doublings),
+    the Horner step of one variable-base MSM call (4 columns, 32 windows of
+    8 doublings) and the SRS's fixed-base multiplication (2^18 scalars).
+    Each equals its plain version word for word.  Beside the Horner's
+    operations bound: its chain's latency floor, its dependent products
+    times one product's latency in a one-thread chain (bench.cios_latency_s,
+    measured here)."""
+    from halo2_zkcert_tpu_torch.bench import cios_latency_s
+    from halo2_zkcert_tpu_torch.ops import curve
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    src = "halo2_zkcert_tpu_torch/csrc/point_chain.cu"
+    k3 = "halo2_zkcert_tpu/ops/pallas_limbs.py:451"
+    k5 = "halo2_zkcert_tpu/ops/pallas_limbs.py:393"
+    P = sample_points(device, n_points, rng)
+    W = sample_points(device, 4 * 32, rng).reshape(4, 32, 3, 8)
+    table = kzg.g1_window_table(device)
+    s = random_canonical(rng, n_scalars, device, FR.modulus)
+    s[5, :3] = 0                                # zero bytes among the others
+    nonzero = int((s.contiguous().view(torch.uint8) != 0).sum())
+    horner_products = 31 * 8 * 8 + 32 * 12
+    cases = (
+        (f"point_windows[{n_points}x16x16]", "point_windows", k3,
+         lambda: curve.windows(P, 16, 16),
+         lambda: curve.windows_plain(P, 16, 16), 96 * 17 * n_points,
+         15 * 16 * 8 * n_points),
+        ("point_horner[4x32x8]", "point_horner", k3,
+         lambda: curve.horner(W, 8), lambda: curve.horner_plain(W, 8),
+         96 * (4 * 32 + 4), 4 * horner_products),
+        (f"point_fixed_mul[{n_scalars}]", "point_fixed_mul", k5,
+         lambda: curve.fixed_mul(s, table),
+         lambda: curve.fixed_mul_plain(s, table),
+         table.numel() * 4 + (32 + 96) * n_scalars, 11 * nonzero),
+    )
+    recs = []
+    for name, counter, replaces, kern, plain, nbytes, products in cases:
+        got = kern()
+        want, plain_ms = timed_once(plain)
+        ok = torch.equal(got, want)
+        log(f"[kernels] {name}: {'exact' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version "
+                                 f"(err {max_abs_err(got, want)})")
+        recs.append(_record(name, src, replaces, max_abs_err(got, want),
+                            kernel_ms(kern, 5), plain_ms, nbytes,
+                            OPS_PER_MUL * products, counter))
+    latency = cios_latency_s(device)
+    recs[1]["latency_floor_ms"] = horner_products * latency * 1e3
+    log(f"[kernels] point_horner: {horner_products} dependent products a "
+        f"column at {latency * 1e9:.1f} ns each in a one-thread chain: floor "
+        f"{recs[1]['latency_floor_ms']:.4f} ms")
+    return recs
+
+
+def check_affine_scans(device, shapes, rng) -> list:
+    """The scan of affine points at the main path's shapes: the bucket scan
+    of one variable-base MSM call (128 rows of 2^17 sorted points) and the
+    ragged fixed-base MSM's local scan (2 rows of 80 016 pairs), a few
+    (0, 0) among the points.  Compared with the plain version as affine
+    points; the plain version runs 4 rows at a time (its Hillis-Steele
+    sweep over 2^24 points at once would not fit the card), timed once."""
+    from halo2_zkcert_tpu_torch.ops import curve, scan
+    recs = []
+    for B, n in shapes:
+        xy = sample_affine(device, B * n, rng).reshape(B, n, 2, 8)
+        xy[:, 7] = 0                           # the identity in every row
+        got = curve.to_affine(scan.point_scan_affine(xy))
+        plain = (lambda: torch.cat([scan.point_scan_affine_plain(xy[r:r + 4])
+                                    for r in range(0, B, 4)]))
+        want, plain_ms = timed_once(plain)
+        want = curve.to_affine(want)
+        torch.cuda.synchronize()
+        ok = torch.equal(got, want)
+        name = f"point_scan_affine[{B}x{n}]"
+        log(f"[kernels] {name}: "
+            f"{'equal as affine points' if ok else 'MISMATCH'}")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version")
+        recs.append(_record(
+            name, "halo2_zkcert_tpu_torch/csrc/point_scan.cu",
+            "halo2_zkcert_tpu/ops/pallas_limbs.py:393", max_abs_err(got, want),
+            kernel_ms(lambda: scan.point_scan_affine(xy), 3), plain_ms,
+            (64 + 96) * B * n, 11 * OPS_PER_MUL * B * (n - 1),
+            "point_scan_affine"))
+        del xy, got, want
+    return recs
+
+
 def check_quotient(device, vk_path: str, rng) -> dict:
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
@@ -493,23 +611,31 @@ def check_srs(device, params_dir: str):
     from halo2_zkcert_tpu_torch.bench import load_rsa_link
     from halo2_zkcert_tpu_torch.ops import kernels
     from halo2_zkcert_tpu_torch.plonk import kzg
-    t0 = time.perf_counter()
-    params = kzg.setup(17, device=device)
-    torch.cuda.synchronize()
-    t_srs = time.perf_counter() - t0
+    kzg.g1_window_table.cache_clear()        # the SRS path builds its table
+    kernels.reset_launches()
+    with recorded_shapes() as rec:
+        t0 = time.perf_counter()
+        params = kzg.setup(17, device=device)
+        torch.cuda.synchronize()
+        t_srs = time.perf_counter() - t0
+    launches = {"srs_setup": dict(kernels.launches)}
     os.makedirs(params_dir, exist_ok=True)
     params.write(os.path.join(params_dir, "kzg_bn254_17.srs"))
     log(f"[srs] k=17 built on the card in {t_srs:.3f} s")
+    log(f"[shapes] srs_setup: {json.dumps(rec.shapes, sort_keys=True)}")
     kernels.reset_launches()
-    t0 = time.perf_counter()
-    for lagrange in (True, False):
-        params.fixed_base(lagrange)
-    torch.cuda.synchronize()
+    with recorded_shapes() as rec:
+        t0 = time.perf_counter()
+        for lagrange in (True, False):
+            params.fixed_base(lagrange)
+        torch.cuda.synchronize()
+        t_tables = time.perf_counter() - t0
+    launches["table_build"] = dict(kernels.launches)
     tab = params.fixed_base(True).table_flat
     log(f"[tables] fixed-base window tables of both bases built in "
-        f"{time.perf_counter() - t0:.3f} s ({tab.shape[0]} points, "
+        f"{t_tables:.3f} s ({tab.shape[0]} points, "
         f"{tab.numel() * 4 / 1e6:.1f} MB a basis)")
-    launches = {"table_build": dict(kernels.launches)}
+    log(f"[shapes] table_build: {json.dumps(rec.shapes, sort_keys=True)}")
     circuit, pk, sig, digest = load_rsa_link(device)
     for label, mode in (("variable base", "0"), ("fixed base", "1")):
         with forced_msm(mode):
@@ -540,13 +666,16 @@ def check_ragged(device, params, n: int) -> dict:
     fb = msm_fb.FixedBaseMsm(base)
     assert fb.nwin * n % msm_fb.SCAN_ROW_MAX, "pair count must be ragged"
     kernels.reset_launches()
-    got = curve.to_affine(fb.msm_many(cols))
+    with recorded_shapes() as rec:
+        got = curve.to_affine(fb.msm_many(cols))
     launches = dict(kernels.launches)
     want = curve.to_affine(msm.msm_many(base, cols))
     ok = torch.equal(got, want)
     log(f"[ragged] fixed-base MSM over {n} points ({fb.nwin * n} pairs, "
-        f"{launches.get('point_add_mixed', 0)} point_add_mixed launches): "
+        f"{launches.get('point_scan_affine', 0)} point_scan_affine "
+        f"launches): "
         f"{'equal to' if ok else 'DIFFERENT FROM'} the variable-base MSM")
+    log(f"[shapes] ragged_msm: {json.dumps(rec.shapes, sort_keys=True)}")
     if not ok:
         raise AssertionError("ragged fixed-base MSM differs")
     return launches
@@ -554,18 +683,23 @@ def check_ragged(device, params, n: int) -> dict:
 
 class recorded_shapes:
     """Count, for the block, the shapes that the wrappers of the point
-    kernels (`curve.add`, `msm_fb.scan_madd`, `scan.point_scan`,
-    `scan.point_row_sum`), of the transforms (`ntt.ntt`, ...) and of the
-    field scans (`frops.field_scan`, `frops.field_row_sum`) are called with:
-    `.shapes` maps "name(shape)" to calls."""
+    kernels (`curve.add`, `curve.windows`, `curve.horner`,
+    `curve.fixed_mul`, `msm_fb.scan_madd`, `scan.point_scan`,
+    `scan.point_scan_affine`, `scan.point_row_sum`), of the transforms
+    (`ntt.ntt`, ...) and of the field scans (`frops.field_scan`,
+    `frops.field_row_sum`) are called with: `.shapes` maps "name(shape)" to
+    calls."""
 
     def __enter__(self):
         from collections import Counter
         from halo2_zkcert_tpu_torch.ops import curve, frops, msm_fb, ntt, scan
         self.shapes = Counter()
         # module, function, trailing axes that are not part of the shape
-        self.saved = [(curve, "add", 2), (msm_fb, "scan_madd", 2),
-                      (scan, "point_scan", 2), (scan, "point_row_sum", 2),
+        self.saved = [(curve, "add", 2), (curve, "windows", 2),
+                      (curve, "horner", 2), (curve, "fixed_mul", 1),
+                      (msm_fb, "scan_madd", 2), (scan, "point_scan", 2),
+                      (scan, "point_scan_affine", 2),
+                      (scan, "point_row_sum", 2),
                       (ntt, "ntt", 1), (ntt, "intt", 1), (ntt, "coset_ntt", 1),
                       (ntt, "coset_intt", 1), (frops, "field_scan", 1),
                       (frops, "field_row_sum", 1)]
@@ -622,6 +756,50 @@ def prove(device, label, params, circuit, pk, sig, digest, warmup) -> dict:
     return launches
 
 
+def check_launches(launches: dict) -> None:
+    """The launch counts each driven path must keep (module docstring)."""
+    fb = launches["fixed_base_proof"]
+    point_launches = sum(fb.get(k, 0) for k in ("point_add", "point_scan",
+                                                "point_row_sum"))
+    if point_launches >= 100 or not fb.get("scan_madd"):
+        raise AssertionError(f"fixed-base proof: {point_launches} launches of "
+                             f"the point kernels, scan_madd "
+                             f"{fb.get('scan_madd', 0)}")
+    binop_launches = sum(v for k, v in fb.items()
+                         if k.startswith("field_binop."))
+    log(f"[launches] fixed_base_proof: field_binop {binop_launches} in all, "
+        f"ntt {fb.get('ntt', 0)}")
+    if binop_launches >= 300 or not 0 < fb.get("ntt", 0) <= 8:
+        raise AssertionError(f"fixed-base proof: {binop_launches} launches of "
+                             f"field_binop, {fb.get('ntt', 0)} of ntt")
+    chains = ("point_double", "point_add_mixed", "point_windows",
+              "point_horner", "point_fixed_mul", "point_scan_affine")
+    vb, tb = launches["variable_base_proof"], launches["table_build"]
+    srs, rg = launches["srs_setup"], launches["ragged_msm"]
+    rules = (
+        ("fixed-base proof launches no chain kernel",
+         not any(fb.get(k, 0) for k in chains)),
+        ("variable-base proof: no point_double, 1-7 point_horner, at most 10 "
+         "point_add", not vb.get("point_double", 0)
+         and 0 < vb.get("point_horner", 0) <= 7
+         and vb.get("point_add", 0) <= 10),
+        ("table build: no point_double, 1-2 point_windows",
+         not tb.get("point_double", 0)
+         and 0 < tb.get("point_windows", 0) <= 2),
+        ("SRS setup: no point_double, no point_add, point_fixed_mul",
+         not srs.get("point_double", 0) and not srs.get("point_add", 0)
+         and srs.get("point_fixed_mul", 0) > 0),
+        ("ragged MSM: 2 point_scan_affine, 3 point_add, no point_add_mixed",
+         rg.get("point_scan_affine", 0) == 2 and rg.get("point_add", 0) == 3
+         and not rg.get("point_add_mixed", 0)),
+    )
+    for what, ok in rules:
+        log(f"[launches] {what}: {'yes' if ok else 'NO'}")
+    broken = [what for what, ok in rules if not ok]
+    if broken:
+        raise AssertionError(f"launch counts: {broken}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=17)
@@ -646,6 +824,9 @@ def main() -> int:
     # 15 of the blinding rows, padded to whole 64-point rows
     recs += check_mixed(device, 1 << 17, 1 << 15, 131264, rng)
     recs += check_scans(device, 4, (1 << 16) - 1, 1 << 15, rng)
+    recs += check_chains(device, 1 << 17, 1 << 18, rng)
+    # the variable-base bucket scan of 4 columns, and the ragged MSM's
+    recs += check_affine_scans(device, ((128, 1 << 17), (2, 16 * 5001)), rng)
     recs.append(check_quotient(
         device, os.path.join(REPO, "build", "rsa_1.pk.vk"), rng))
     for r in recs:
@@ -665,8 +846,9 @@ def main() -> int:
     with forced_msm("0"):
         launches["variable_base_proof"] = prove(device, "variable base",
                                                 *link, warmup=False)
-    paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm")
-    for path in paths + ("table_build",):
+    paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm",
+             "table_build", "srs_setup")
+    for path in paths:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")
     for r in recs:
@@ -675,23 +857,12 @@ def main() -> int:
         r["launches_path"] = next(
             (p for p in paths if r["launches_by_path"][p] > 0), None)
         r["launches"] = r["launches_by_path"].get(r["launches_path"], 0)
-    missing = [r["name"] for r in recs if r["launches"] <= 0]
+    missing = sorted({r["replaces"] for r in recs}
+                     - {r["replaces"] for r in recs if r["launches"] > 0})
     if missing:
-        raise AssertionError(f"kernels launched on no driven path: {missing}")
-    fb = launches["fixed_base_proof"]
-    point_launches = sum(fb.get(k, 0) for k in ("point_add", "point_scan",
-                                                "point_row_sum"))
-    if point_launches >= 100 or not fb.get("scan_madd"):
-        raise AssertionError(f"fixed-base proof: {point_launches} launches of "
-                             f"the point kernels, scan_madd "
-                             f"{fb.get('scan_madd', 0)}")
-    binop_launches = sum(v for k, v in fb.items()
-                         if k.startswith("field_binop."))
-    log(f"[launches] fixed_base_proof: field_binop {binop_launches} in all, "
-        f"ntt {fb.get('ntt', 0)}")
-    if binop_launches >= 300 or not 0 < fb.get("ntt", 0) <= 8:
-        raise AssertionError(f"fixed-base proof: {binop_launches} launches of "
-                             f"field_binop, {fb.get('ntt', 0)} of ntt")
+        raise AssertionError(f"TPU kernels launched in no form on any driven "
+                             f"path: {missing}")
+    check_launches(launches)
 
     print(card, flush=True)
     print(json.dumps({"kernels": recs}), flush=True)

@@ -19,7 +19,8 @@ four full columns and of one bounded 16-bit column through the fixed-base
 MSM for each row length of the scan kernel, forced in place of what
 ops/msm_fb.scan_row_length picks, and the row length it does pick.
 With --cios-rate no proof runs either: the line carries the rate of bare
-256-bit Montgomery products on the card (csrc/cios_rate.cu).
+256-bit Montgomery products on the card (csrc/cios_rate.cu), and the latency
+of one such product in a chain that a single thread carries.
 """
 from __future__ import annotations
 
@@ -160,11 +161,29 @@ def sweep_scan_c(params, widths=(8, 16, 32, 64)) -> dict:
     return out
 
 
+def cios_latency_s(device, iters: int = 1 << 14) -> float:
+    """Seconds of one Montgomery product in a chain of dependent ones that a
+    single thread carries alone (CUDA events, mean of 3 after a warm-up):
+    the floor under any kernel that is one such chain."""
+    from .ops import kernels
+    lib = kernels.lib("cios_rate")
+    seed = torch.arange(3, 19, dtype=torch.int32, device=device)
+    sink = torch.empty(1, dtype=torch.int32, device=device)
+
+    def launch():
+        kernels.check(lib.h2t_cios_rate(seed.data_ptr(), sink.data_ptr(), 1,
+                                        1, 1, iters,
+                                        kernels.stream_ptr(seed.device)),
+                      "cios_rate")
+    return _cuda_ms(launch, 3) * 1e-3 / iters
+
+
 def cios_rate(device) -> dict:
     """Products a second of the kernels' own CIOS Montgomery product with
     every SM full and 1, 2 or 4 independent chains a thread (CUDA events,
     mean of 5 after a warm-up), and the same as 32-bit multiply-add
-    operations at the 544 a product that the kernels' bounds count."""
+    operations at the 544 a product that the kernels' bounds count; and the
+    latency of one product in a single thread's chain."""
     from .ops import kernels
     lib = kernels.lib("cios_rate")
     threads, iters = 256, 2048
@@ -182,6 +201,7 @@ def cios_rate(device) -> dict:
             _cuda_ms(launch, 5) * 1e-3)
         out[f"chains_{chains}"] = {"products_per_s": per_s,
                                    "operations_per_s": per_s * 544}
+    out["one_thread_latency_s"] = cios_latency_s(device)
     return out
 
 

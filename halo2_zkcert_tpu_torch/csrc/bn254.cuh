@@ -462,6 +462,126 @@ H2T_HD Pt point_sum_strided(const uint32_t* p, long long stride,
 }
 
 // ---------------------------------------------------------------------------
+// The blocked scan of AFFINE points (point_scan.cu, k_point_scan_affine and
+// k_point_reduce_affine): the same run routines over canonical (x, y) pairs,
+// (0, 0) read as the identity, combined by mixed additions (RCB16 Alg. 8).
+// scan_run_local_affine reads the pair from the first 16 words of each of
+// `cnt` slots of 24 words at `p` and writes the run's prefix there, 24 words
+// in Montgomery form, for scan_run_apply; point_sum_strided_affine sums
+// `cnt` pairs `stride` words apart.  Run totals and everything after them
+// are projective.
+// ---------------------------------------------------------------------------
+
+H2T_HD bool affine_is_identity(const Fe& x, const Fe& y) {
+  uint32_t any = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) any |= x.w[i] | y.w[i];
+  return any == 0;
+}
+
+// acc + (x, y) for a canonical pair; the pair (0, 0) leaves acc as it is.
+H2T_HD Pt point_madd_affine(const Pt& acc, const uint32_t* xy) {
+  const Fe x = load_fe_v(xy), y = load_fe_v(xy + 8);
+  if (affine_is_identity(x, y)) return acc;
+  return point_madd_mont(acc, to_mont<FQ>(x), to_mont<FQ>(y));
+}
+
+// A canonical pair as a projective point in Montgomery form, Z = 1.
+H2T_HD Pt point_lift_affine(const uint32_t* xy) {
+  const Fe x = load_fe_v(xy), y = load_fe_v(xy + 8);
+  if (affine_is_identity(x, y)) return pt_identity_mont();
+  Pt r;
+  r.x = to_mont<FQ>(x);
+  r.y = to_mont<FQ>(y);
+  r.z = fq_one_mont();
+  return r;
+}
+
+H2T_HD Pt scan_run_local_affine(uint32_t* p, int cnt) {
+  if (cnt <= 0) return pt_identity_mont();
+  Pt acc = point_lift_affine(p);
+  store_pt_v(p, acc);
+#pragma unroll 1
+  for (int k = 1; k < cnt; ++k) {
+    acc = point_madd_affine(acc, p + 24 * k);
+    store_pt_v(p + 24 * k, acc);
+  }
+  return acc;
+}
+
+H2T_HD Pt point_sum_strided_affine(const uint32_t* p, long long stride,
+                                   long long cnt) {
+  if (cnt <= 0) return pt_identity_mont();
+  Pt acc = point_lift_affine(p);
+#pragma unroll 1
+  for (long long k = 1; k < cnt; ++k)
+    acc = point_madd_affine(acc, p + stride * k);
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
+// Chains of the group law kept in registers (point_chain.cu): one thread
+// carries one chain in Montgomery form from its first load to its last store.
+//
+// point_windows_chain: P (canonical, 24 words at p) -> out + w * wstride =
+//   2^(c w) P for w < nwin, canonical; window 0 is P as given, each later
+//   one c doublings (RCB16 Alg. 9) of the one before.
+// point_horner_chain: sum_w 2^(c w) W_w of nwin canonical points, W_w at
+//   win + w * wstride, from the top window down: acc = identity, then for
+//   w = nwin - 1 .. 0, c doublings (none before the first window) and one
+//   addition (RCB16 Alg. 7).  Returned in Montgomery form.
+// point_fixed_mul_chain: s * G for a canonical scalar s (8 words at s),
+//   sum over its 32 bytes d_w of table[w][d_w], a table of 32 x 256 affine
+//   pairs in MONTGOMERY form (table[w][d] = d 2^(8w) G; row 0 unused): one
+//   mixed addition a nonzero byte, from window 0 up; a zero byte adds
+//   nothing (the formula needs a point that is not the identity).  Returned
+//   in Montgomery form.
+// ---------------------------------------------------------------------------
+
+H2T_HD Pt point_double_n_mont(Pt acc, int c) {
+#pragma unroll 1
+  for (int i = 0; i < c; ++i) acc = point_double_mont(acc);
+  return acc;
+}
+
+H2T_HD void point_windows_chain(const uint32_t* p, int c, int nwin,
+                                uint32_t* out, long long wstride) {
+  const Pt P = load_pt_v(p);
+  store_pt_v(out, P);
+  Pt acc = pt_to_mont(P);
+#pragma unroll 1
+  for (int w = 1; w < nwin; ++w) {
+    acc = point_double_n_mont(acc, c);
+    store_pt_v(out + wstride * w, pt_from_mont(acc));
+  }
+}
+
+H2T_HD Pt point_horner_chain(const uint32_t* win, long long wstride, int c,
+                             int nwin) {
+  Pt acc = pt_identity_mont();
+#pragma unroll 1
+  for (int w = nwin - 1; w >= 0; --w) {
+    if (w < nwin - 1) acc = point_double_n_mont(acc, c);
+    acc = point_add_mont(acc, pt_to_mont(load_pt_v(win + wstride * w)));
+  }
+  return acc;
+}
+
+static const int FIXED_WINDOWS = 32;   // 8-bit digits of a 256-bit scalar
+
+H2T_HD Pt point_fixed_mul_chain(const uint32_t* table, const uint32_t* s) {
+  Pt acc = pt_identity_mont();
+#pragma unroll 1
+  for (int w = 0; w < FIXED_WINDOWS; ++w) {
+    const uint32_t d = (s[w >> 2] >> (8 * (w & 3))) & 0xffu;
+    if (d == 0) continue;
+    const uint32_t* q = table + ((long long)w * 256 + d) * 16;
+    acc = point_madd_mont(acc, load_fe_v(q), load_fe_v(q + 8));
+  }
+  return acc;
+}
+
+// ---------------------------------------------------------------------------
 // One row of the mixed-add prefix scan (scan_madd.cu): C canonical affine
 // points (x, y), 16 words each, -> canonical projective inclusive prefixes,
 // 24 words each.  The running sum stays in Montgomery form across all C - 1

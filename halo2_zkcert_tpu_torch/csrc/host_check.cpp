@@ -95,6 +95,65 @@ extern "C" void hc_point_scan(const uint32_t* P, uint32_t* out, long long B,
   }
 }
 
+// The blocked scan of affine points (16 words each in, 24 out), laid out as
+// hc_point_scan lays out the projective one: each run goes through
+// scan_run_local_affine in slots of 24 words, then scan_run_apply.  With
+// `lanes` > 0 the row's total is also summed as k_point_reduce_affine sums
+// it (point_sum_strided_affine over `lanes` strided partial sums) into
+// totals (B, 24), canonical.
+extern "C" void hc_point_scan_affine(const uint32_t* xy, uint32_t* out,
+                                     uint32_t* totals, long long B,
+                                     long long n, int run, int reverse,
+                                     int lanes) {
+  std::vector<uint32_t> tile(24 * n);
+  for (long long b = 0; b < B; ++b) {
+    for (long long l = 0; l < n; ++l)
+      std::memcpy(&tile[24 * l],
+                  xy + (b * n + (reverse ? n - 1 - l : l)) * 16, 64);
+    std::vector<Pt> runs;
+    for (long long s = 0; s < n; s += run)
+      runs.push_back(scan_run_local_affine(
+          &tile[24 * s], (int)std::min<long long>(run, n - s)));
+    Pt off = pt_identity_mont();
+    for (long long s = 0, i = 0; s < n; s += run, ++i) {
+      scan_run_apply(&tile[24 * s], (int)std::min<long long>(run, n - s), off);
+      off = point_add_mont(off, runs[i]);
+    }
+    for (long long l = 0; l < n; ++l)
+      std::memcpy(out + (b * n + (reverse ? n - 1 - l : l)) * 24,
+                  &tile[24 * l], 96);
+    if (lanes <= 0) continue;
+    Pt acc = pt_identity_mont();
+    for (int t = 0; t < lanes; ++t)
+      acc = point_add_mont(acc, point_sum_strided_affine(
+          xy + (b * n + t) * 16, 16LL * lanes, (n - t + lanes - 1) / lanes));
+    stp(totals + 24 * b, pt_from_mont(acc));
+  }
+}
+
+// The chains of point_chain.cu, a thread's work for each point, column or
+// scalar in turn.  windows: P (n, 24) -> out (nwin, n, 24).
+extern "C" void hc_point_windows(const uint32_t* P, uint32_t* out, long long n,
+                                 int c, int nwin) {
+  for (long long i = 0; i < n; ++i)
+    point_windows_chain(P + 24 * i, c, nwin, out + 24 * i, 24 * n);
+}
+
+// W (m, nwin, 24) -> out (m, 24).
+extern "C" void hc_point_horner(const uint32_t* W, uint32_t* out, long long m,
+                                int c, int nwin) {
+  for (long long j = 0; j < m; ++j)
+    stp(out + 24 * j,
+        pt_from_mont(point_horner_chain(W + j * nwin * 24, 24, c, nwin)));
+}
+
+// table (32, 256, 16) in Montgomery form, s (n, 8) -> out (n, 24).
+extern "C" void hc_point_fixed_mul(const uint32_t* table, const uint32_t* s,
+                                   uint32_t* out, long long n) {
+  for (long long i = 0; i < n; ++i)
+    stp(out + 24 * i, pt_from_mont(point_fixed_mul_chain(table, s + 8 * i)));
+}
+
 // Row sums as k_point_reduce takes them: `lanes` strided partial sums a row
 // (point_sum_strided), then their sum.
 extern "C" void hc_point_row_sum(const uint32_t* P, uint32_t* out, long long B,

@@ -1,5 +1,5 @@
 """BN254 G1 on tensors, and kernels K2 (point_add), K3 (point_double) and
-K5 (point_add_mixed).
+K5 (point_add_mixed) with K3's and K5's chain forms.
 
 Points are homogeneous projective (X, Y, Z) stored as one int32 tensor of
 shape (..., 3, 8): three canonical Fq elements; the identity is (0, 1, 0).
@@ -12,6 +12,13 @@ replacing the TPU's fused_point_add, fused_point_double and
 fused_point_add_mixed): a CUDA tensor launches the kernel, a CPU tensor runs
 `add_plain` / `double_plain` / `add_mixed_plain`, the same formulas over the
 plain field arithmetic of ops/field.py.
+
+`windows`, `horner` and `fixed_mul` wrap the chain kernels of
+csrc/point_chain.cu, one launch for a chain of doublings and additions
+(window tables, the Horner step of an MSM) or of mixed additions (s * G from
+a window table of G), in the same way: a CPU tensor runs `windows_plain` /
+`horner_plain` / `fixed_mul_plain`, the loops over the formulas above.  Each
+gives the same projective words as its plain version.
 """
 from __future__ import annotations
 
@@ -196,6 +203,115 @@ def double(P: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# ---------------------------------------------------------------------------
+# chains of one launch (csrc/point_chain.cu): K3 as window tables and as the
+# Horner step of an MSM, K5 as a fixed-base multiplication
+# ---------------------------------------------------------------------------
+
+FIXED_WINDOWS = 32   # 8-bit digits of a 256-bit scalar
+
+
+def windows_plain(P: torch.Tensor, c: int, nwin: int) -> torch.Tensor:
+    """Plain version of `windows`: c `double_plain` steps a window."""
+    out = [P]
+    for _ in range(1, nwin):
+        for _ in range(c):
+            P = double_plain(P)
+        out.append(P)
+    return torch.stack(out)
+
+
+def windows(P: torch.Tensor, c: int, nwin: int) -> torch.Tensor:
+    """(n, 3, 8) projective -> (nwin, n, 3, 8): out[w] = 2^(c w) P, window 0
+    being P as given and each later one c doublings of the one before."""
+    if P.device.type == "cpu":
+        return windows_plain(P, c, nwin)
+    P = P.contiguous()
+    if P.dim() != 3:
+        raise ValueError(f"point_windows: expected (n, 3, 8) points, got "
+                         f"{tuple(P.shape)}")
+    out = torch.empty((nwin,) + P.shape, dtype=torch.int32, device=P.device)
+    _check_points("point_windows", P, out)
+    lib = kernels.lib("point_chain")
+    kernels.launches["point_windows"] += 1
+    kernels.check(lib.h2t_point_windows(P.data_ptr(), out.data_ptr(),
+                                        P.shape[0], c, nwin,
+                                        kernels.stream_ptr(P.device)),
+                  "point_windows")
+    return out
+
+
+def horner_plain(W: torch.Tensor, c: int) -> torch.Tensor:
+    """Plain version of `horner`: from the identity, for the windows from
+    the top down, c `double_plain` steps (none before the top window) and
+    one `add_plain`."""
+    nwin = W.shape[1]
+    acc = identity(W.shape[:1], W.device)
+    for w in range(nwin - 1, -1, -1):
+        if w < nwin - 1:
+            for _ in range(c):
+                acc = double_plain(acc)
+        acc = add_plain(acc, W[:, w])
+    return acc
+
+
+def horner(W: torch.Tensor, c: int) -> torch.Tensor:
+    """(m, nwin, 3, 8) window sums -> (m, 3, 8): sum_w 2^(c w) W[:, w], in
+    the order of the JAX package's _horner_windows (ops/msm.py:118)."""
+    if W.device.type == "cpu":
+        return horner_plain(W, c)
+    W = W.contiguous()
+    if W.dim() != 4:
+        raise ValueError(f"point_horner: expected (m, nwin, 3, 8) points, "
+                         f"got {tuple(W.shape)}")
+    out = torch.empty((W.shape[0], 3, 8), dtype=torch.int32, device=W.device)
+    _check_points("point_horner", W, out)
+    lib = kernels.lib("point_chain")
+    kernels.launches["point_horner"] += 1
+    kernels.check(lib.h2t_point_horner(W.data_ptr(), out.data_ptr(),
+                                       W.shape[0], c, W.shape[1],
+                                       kernels.stream_ptr(W.device)),
+                  "point_horner")
+    return out
+
+
+def fixed_mul_plain(scalars: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Plain version of `fixed_mul`: for each byte of the scalars, from the
+    lowest, one `add_mixed_plain` of its table point where it is not 0."""
+    digits = scalars.contiguous().view(torch.uint8).to(torch.int64)
+    aff = field.mul_mont_plain(FQ, table, field.const(FQ, 1, table.device))
+    acc = identity(scalars.shape[:-1], scalars.device)
+    for w in range(FIXED_WINDOWS):
+        d = digits[..., w]
+        acc = torch.where((d != 0)[..., None, None],
+                          add_mixed_plain(acc, aff[w][d]), acc)
+    return acc
+
+
+def fixed_mul(scalars: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """s * G for scalars (..., 8) canonical Fr words -> (..., 3, 8)
+    projective.  `table` (32, 256, 2, 8) holds d * 2^(8 w) * G at [w, d] as
+    affine words in Montgomery form (x * 2^256; row d = 0 is never read):
+    one mixed addition for every nonzero byte of a scalar."""
+    if scalars.device.type == "cpu":
+        return fixed_mul_plain(scalars, table)
+    s, table = scalars.contiguous(), table.contiguous()
+    if s.shape[-1] != 8 or table.shape != (FIXED_WINDOWS, 256, 2, 8):
+        raise ValueError(f"point_fixed_mul: expected (..., 8) scalars and a "
+                         f"(32, 256, 2, 8) table, got {tuple(s.shape)} and "
+                         f"{tuple(table.shape)}")
+    out = torch.empty(s.shape[:-1] + (3, 8), dtype=torch.int32,
+                      device=s.device)
+    kernels.require_cuda_int32("point_fixed_mul", s, table, out)
+    lib = kernels.lib("point_chain")
+    kernels.launches["point_fixed_mul"] += 1
+    kernels.check(lib.h2t_point_fixed_mul(table.data_ptr(), s.data_ptr(),
+                                          out.data_ptr(), s.numel() // 8,
+                                          kernels.stream_ptr(s.device)),
+                  "point_fixed_mul")
+    return out
+
+
 def sub(P: torch.Tensor, Q: torch.Tensor) -> torch.Tensor:
     return add(P, neg(Q))
 
@@ -207,7 +323,8 @@ def select(cond: torch.Tensor, P: torch.Tensor, Q: torch.Tensor):
 
 def scalar_mul(P: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:
     """Batched double-and-add: P (..., 3, 8), scalars (..., 8) canonical
-    words (LSB first); 256 steps of one add and one double each."""
+    words (LSB first); 256 steps of one add and one double each, for any
+    base.  Multiples of one fixed base take `fixed_mul`."""
     acc = identity(P.shape[:-2], P.device)
     base = P
     words = scalars.to(torch.int64) & 0xFFFFFFFF

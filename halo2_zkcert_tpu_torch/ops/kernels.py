@@ -30,6 +30,7 @@ SOURCES = {
     "field_binop": "field_binop.cu",
     "field_scan": "field_scan.cu",
     "ntt": "ntt.cu",
+    "point_chain": "point_chain.cu",
     "point_ops": "point_ops.cu",
     "point_scan": "point_scan.cu",
     "quotient_forest": "quotient_forest.cu",
@@ -53,6 +54,11 @@ _SIGNATURES = {
     "h2t_point_add_mixed": [_P, _P, _P, _L, _P],
     "h2t_point_scan": [_P, _L, _P, _P, _L, _L, _L, _I, _P],
     "h2t_point_reduce": [_P, _L, _P, _L, _L, _L, _I, _P],
+    "h2t_point_scan_affine": [_P, _L, _P, _P, _L, _L, _L, _I, _P],
+    "h2t_point_reduce_affine": [_P, _L, _P, _L, _L, _L, _I, _P],
+    "h2t_point_windows": [_P, _P, _L, _I, _I, _P],
+    "h2t_point_horner": [_P, _P, _L, _I, _I, _P],
+    "h2t_point_fixed_mul": [_P, _P, _P, _L, _P],
     "h2t_scan_madd": [_P, _P, _P, _L, _I, _P],
     "h2t_quotient_forest": [_P, _L, _P, _P, _I, _I, _I, _P, _P],
 }

@@ -3,11 +3,12 @@ columns.
 
 Counterpart of halo2_zkcert_tpu/ops/msm.py, same data flow: 8-bit windows
 (the scalar bytes), per window the points sorted by digit, an inclusive
-group-law prefix scan over the sorted points (ops/scan.point_scan, all
-windows and columns at once), bucket sums as differences of the scan at
-segment ends, the running-suffix combine sum_d d * B_d (a reverse scan and a
-row sum), and Horner over the windows with 8 doublings (K3) per step.  Only
-the resulting point has to equal the reference's.
+group-law prefix scan over the sorted affine points (ops/scan
+.point_scan_affine, mixed additions, all windows and columns at once),
+bucket sums as differences of the scan at segment ends, the running-suffix
+combine sum_d d * B_d (a reverse scan and a row sum), and Horner over the
+windows with 8 doublings a step (curve.horner, one launch).  Only the
+resulting point has to equal the reference's.
 """
 from __future__ import annotations
 
@@ -24,13 +25,11 @@ def msm_many(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor
     Returns (m, 3, 8) projective sums sum_i scalars[j, i] * points[i]."""
     m, n = scalars.shape[:2]
     dev = scalars.device
-    pts = curve.from_affine(points_affine)                  # (n, 3, 8)
     digits = scalars.contiguous().view(torch.uint8).reshape(m, n, 32)
     digits = digits.permute(0, 2, 1).to(torch.int64).reshape(
         m * NWINDOWS, n)                                    # (B, n)
     dsort, order = torch.sort(digits, dim=1)
-    psort = pts[order]                                      # (B, n, 3, 8)
-    prefix = scan.point_scan(psort)
+    prefix = scan.point_scan_affine(points_affine[order])   # (B, n, 3, 8)
 
     # bucket d = prefix[last index with digit <= d] - prefix[last with < d]
     ends = torch.searchsorted(
@@ -53,12 +52,7 @@ def msm_many(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor
     suffix = scan.point_scan(bucket[:, 1:], reverse=True)   # bucket 0 dropped
     window_sums = scan.point_row_sum(suffix).reshape(m, NWINDOWS, 3, 8)
 
-    acc = window_sums[:, NWINDOWS - 1].contiguous()
-    for w in range(NWINDOWS - 2, -1, -1):
-        for _ in range(8):
-            acc = curve.double(acc)
-        acc = curve.add(acc, window_sums[:, w].contiguous())
-    return acc
+    return curve.horner(window_sums, 8)
 
 
 def msm(points_affine: torch.Tensor, scalars: torch.Tensor) -> torch.Tensor:

@@ -3,8 +3,9 @@ kernel K6 (scan_madd).
 
 Counterpart of halo2_zkcert_tpu/ops/msm_fb.py.  Every prover commitment is
 an MSM over the FIXED SRS bases, so per basis the tables
-T[w][i] = 2^(wbits * w) * G_i are built once (K3 doublings, one batched
-affine normalization) and kept as canonical affine words, 64 B a point.  An
+T[w][i] = 2^(wbits * w) * G_i are built once (the doubling chains of
+curve.windows, one batched affine normalization) and kept as canonical
+affine words, 64 B a point.  An
 MSM then has no window structure: it is one flat bucket accumulation over
 the nwin * n (digit, table point) pairs:
 
@@ -13,7 +14,7 @@ the nwin * n (digit, table point) pairs:
   C points through K6 (one thread a row, the running sum in registers), C
   picked for each launch so that the rows fill the card, and a scan of the
   row totals (ops/scan.point_scan); a width that is not whole
-  SCAN_ROW_MAX-point rows level by level, the first level through K5;
+  SCAN_ROW_MAX-point rows through ops/scan.point_scan_affine;
 * bucket sums are differences of the prefix at the segment ends, added
   across chunks;
 * sum_d d * B_d = sum_{d >= 1} S_d with S the suffix scan of the buckets
@@ -76,8 +77,9 @@ def _digits(scalars: torch.Tensor, wbits: int) -> torch.Tensor:
 def build_tables(base_affine: torch.Tensor, wbits: int) -> torch.Tensor:
     """(n, 2, 8) affine points, none the identity -> (nwin * n, 2, 8) window
     tables, window-major: T[w * n + i] = 2^(wbits * w) * base[i].  Windows
-    stay projective through the `wbits` doublings a step (K3) and are
-    normalized in one batched inversion per 2^17-point slice of the base."""
+    come projective out of one `curve.windows` launch (the `wbits`
+    doublings a step of every window in registers) and are normalized in one
+    batched inversion per 2^17-point slice of the base."""
     nwin = _nwin(wbits)
     n = base_affine.shape[0]
     step = min(n, 1 << 17)
@@ -85,12 +87,7 @@ def build_tables(base_affine: torch.Tensor, wbits: int) -> torch.Tensor:
                       device=base_affine.device)
     for off in range(0, n, step):
         P = scan.lift_affine(base_affine[off:off + step])
-        windows = [P]
-        for _ in range(1, nwin):
-            for _ in range(wbits):
-                P = curve.double(P)
-            windows.append(P)
-        out[:, off:off + step] = curve.to_affine(torch.stack(windows))
+        out[:, off:off + step] = curve.to_affine(curve.windows(P, wbits, nwin))
     return out.reshape(nwin * n, 2, 8)
 
 
@@ -191,7 +188,7 @@ def _scan_local(pts_sorted: torch.Tensor, dsort: torch.Tensor):
     where a pair is the last of its digit or of its row.  A chunk of whole
     SCAN_ROW_MAX rows goes through K6 at the row length of
     `scan_row_length` and a scan of the row totals; any other width through
-    the level-by-level scan."""
+    the scan of affine points (scan.prefix_scan_batched_local)."""
     B, chunk = pts_sorted.shape[:2]
     if chunk % SCAN_ROW_MAX or chunk // SCAN_ROW_MAX < 2:
         return scan.prefix_scan_batched_local(pts_sorted)

@@ -1,14 +1,16 @@
 """Prefix scans and row sums of G1 points under the group law, and the
-kernels point_scan / point_row_sum.
+kernels point_scan / point_row_sum / point_scan_affine.
 
 Counterpart of the part of halo2_zkcert_tpu/ops/scan.py that the MSMs use.
 `point_scan` and `point_row_sum` wrap the kernels of csrc/point_scan.cu, the
-scan form of K2 (the TPU's fused_point_add under a scan): a CUDA tensor
-launches them, two launches a scan or a row sum at most whatever the row
-length, a CPU tensor runs `point_scan_plain` / `point_row_sum_plain`,
-log-depth sweeps over `curve.add`.  The kernels add in another order than
-the plain versions, so the two agree as group elements (compare after
-`curve.to_affine`), not as projective triples.
+scan form of K2 (the TPU's fused_point_add under a scan), and
+`point_scan_affine` its affine form, a scan form of K5 (fused_point_add_mixed:
+the points come in as affine pairs and are added by mixed additions): a CUDA
+tensor launches them, two launches a scan or a row sum at most whatever the
+row length, a CPU tensor runs `point_scan_plain` / `point_row_sum_plain` /
+`point_scan_affine_plain`, log-depth sweeps over the plain group law.  The
+kernels add in another order than the plain versions, so the two agree as
+group elements (compare after `curve.to_affine`), not as projective triples.
 
 A local scan returns `(local, offsets, C)`: `local` (B, n, 3, 8) holds
 prefixes local to each C-sized row, `offsets` (B, n / C, 3, 8) the exclusive
@@ -34,12 +36,16 @@ MAX_BLOCKS_A_ROW = 1024
 
 
 def _add(x, y):
-    return (curve.add(x[0], y[0]),)
+    return (curve.add_plain(x[0], y[0]),)
 
 
 def _add_first(x, y):
-    # level 1: the later operand is still an original point (x, y, 1)
-    return (curve.add_mixed(x[0], y[0][..., :2, :]),)
+    # level 1: the later operand is still an original point, (x, y, 1) or the
+    # identity (0, 1, 0), which the mixed addition must not be given
+    later = y[0]
+    inf = (later[..., 2, :] == 0).all(-1)
+    return (curve.select(inf, x[0],
+                         curve.add_mixed_plain(x[0], later[..., :2, :])),)
 
 
 def lift_affine(xy: torch.Tensor) -> torch.Tensor:
@@ -58,7 +64,17 @@ def point_scan_plain(P: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     addition."""
     if reverse:
         return point_scan_plain(P.flip(1)).flip(1)
-    return hillis_steele((P,), lambda x, y: (curve.add_plain(x[0], y[0]),))[0]
+    return hillis_steele((P,), _add)[0]
+
+
+def point_scan_affine_plain(xy: torch.Tensor,
+                            reverse: bool = False) -> torch.Tensor:
+    """Plain version of `point_scan_affine`: a Hillis-Steele sweep whose
+    first level is a mixed addition (its later operand is still an input
+    point) and whose others are full additions."""
+    if reverse:
+        return point_scan_affine_plain(xy.flip(1)).flip(1)
+    return hillis_steele((curve.from_affine(xy),), _add, _add_first)[0]
 
 
 def point_row_sum_plain(P: torch.Tensor) -> torch.Tensor:
@@ -80,52 +96,58 @@ def _span(B: int, n: int) -> int:
                       -(-tiles // MAX_BLOCKS_A_ROW))
 
 
-def _rows(name: str, P: torch.Tensor):
-    """Check (B, n, 3, 8) CUDA points; returns the tensor (copied only if
-    its rows are not dense runs of 96-byte points on 16-byte boundaries, so
-    a slice along axis 1 is read in place) and the distance between rows in
+def _rows(name: str, P: torch.Tensor, coords: int = 3):
+    """Check (B, n, coords, 8) CUDA points; returns the tensor (copied only
+    if its rows are not dense runs of points on 16-byte boundaries, so a
+    slice along axis 1 is read in place) and the distance between rows in
     words."""
-    if P.dim() != 4 or P.shape[-2:] != (3, 8) or 0 in P.shape:
-        raise ValueError(f"{name}: expected nonempty (B, n, 3, 8) points, "
-                         f"got {tuple(P.shape)}")
+    words = 8 * coords
+    if P.dim() != 4 or P.shape[-2:] != (coords, 8) or 0 in P.shape:
+        raise ValueError(f"{name}: expected nonempty (B, n, {coords}, 8) "
+                         f"points, got {tuple(P.shape)}")
     if not P.is_cuda or P.dtype != torch.int32:
         raise ValueError(f"{name}: expected CUDA int32 words, got "
                          f"{P.dtype} on {P.device}")
     B, n = P.shape[:2]
     dense = (P.stride(3) == 1 and P.stride(2) == 8
-             and (n == 1 or P.stride(1) == 24)
-             and (B == 1 or (P.stride(0) >= 24 * n and P.stride(0) % 4 == 0))
+             and (n == 1 or P.stride(1) == words)
+             and (B == 1 or (P.stride(0) >= words * n
+                             and P.stride(0) % 4 == 0))
              and P.data_ptr() % 16 == 0)
     if not dense:
         P = P.contiguous()
-    return P, (P.stride(0) if B > 1 else 24 * n)
+    return P, (P.stride(0) if B > 1 else words * n)
 
 
 def _reduce(name: str, P: torch.Tensor, row_words: int, span: int,
             reverse: bool) -> torch.Tensor:
-    """One k_point_reduce launch: (B, n) -> (B, ceil(n / span)) totals."""
+    """One k_point_reduce launch (k_point_reduce_affine for (B, n, 2, 8)
+    points): (B, n) -> (B, ceil(n / span)) projective totals."""
     B, n = P.shape[:2]
     out = torch.empty((B, -(-n // span), 3, 8), dtype=torch.int32,
                       device=P.device)
+    lib = kernels.lib("point_scan")
+    fn = lib.h2t_point_reduce_affine if P.shape[2] == 2 \
+        else lib.h2t_point_reduce
     kernels.launches[name] += 1
-    kernels.check(kernels.lib("point_scan").h2t_point_reduce(
-        P.data_ptr(), row_words, out.data_ptr(), B, n, span, int(reverse),
-        kernels.stream_ptr(P.device)), name)
+    kernels.check(fn(P.data_ptr(), row_words, out.data_ptr(), B, n, span,
+                     int(reverse), kernels.stream_ptr(P.device)), name)
     return out
 
 
-def _scan(P: torch.Tensor, row_words: int, totals, span: int,
+def _scan(name: str, P: torch.Tensor, row_words: int, totals, span: int,
           reverse: bool) -> torch.Tensor:
-    """One k_point_scan launch; `totals` what `_reduce` gives for the same
-    span, or None where a row is one block."""
+    """One k_point_scan launch (k_point_scan_affine for (B, n, 2, 8)
+    points); `totals` what `_reduce` gives for the same span, or None where a
+    row is one block."""
     B, n = P.shape[:2]
     out = torch.empty((B, n, 3, 8), dtype=torch.int32, device=P.device)
-    kernels.launches["point_scan"] += 1
-    kernels.check(kernels.lib("point_scan").h2t_point_scan(
-        P.data_ptr(), row_words, out.data_ptr(),
-        None if totals is None else totals.data_ptr(), B, n, span,
-        int(reverse),
-        kernels.stream_ptr(P.device)), "point_scan")
+    lib = kernels.lib("point_scan")
+    fn = lib.h2t_point_scan_affine if P.shape[2] == 2 else lib.h2t_point_scan
+    kernels.launches[name] += 1
+    kernels.check(fn(P.data_ptr(), row_words, out.data_ptr(),
+                     None if totals is None else totals.data_ptr(), B, n,
+                     span, int(reverse), kernels.stream_ptr(P.device)), name)
     return out
 
 
@@ -136,12 +158,27 @@ def point_scan(P: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     anywhere.  Only the group element of a result is specified."""
     if P.device.type == "cpu":
         return point_scan_plain(P, reverse)
-    P, row_words = _rows("point_scan", P)
+    return _scan_rows("point_scan", P, 3, reverse)
+
+
+def _scan_rows(name: str, P: torch.Tensor, coords: int,
+               reverse: bool) -> torch.Tensor:
+    P, row_words = _rows(name, P, coords)
     B, n = P.shape[:2]
     span = _span(B, n)
-    totals = None if n <= span else _reduce("point_scan", P, row_words, span,
+    totals = None if n <= span else _reduce(name, P, row_words, span,
                                             reverse)
-    return _scan(P, row_words, totals, span, reverse)
+    return _scan(name, P, row_words, totals, span, reverse)
+
+
+def point_scan_affine(xy: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """Inclusive prefix sums along axis 1 of affine points (B, n, 2, 8),
+    (0, 0) read as the identity, every row on its own -> (B, n, 3, 8)
+    projective; from the row's end with `reverse`.  Two launches at most
+    whatever n is.  Only the group element of a result is specified."""
+    if xy.device.type == "cpu":
+        return point_scan_affine_plain(xy, reverse)
+    return _scan_rows("point_scan_affine", xy, 2, reverse)
 
 
 def point_row_sum(P: torch.Tensor) -> torch.Tensor:
@@ -157,11 +194,8 @@ def point_row_sum(P: torch.Tensor) -> torch.Tensor:
 
 
 def prefix_scan_batched_local(xy: torch.Tensor):
-    """Local scan of affine points (B, n, 2, 8), none the identity, for any
-    width n: level by level, the first level a mixed addition (K5) because
-    its right operand is an original affine point, the others full
-    additions (K2).  One row spans the whole width, so the offsets are a
-    single identity a batch row and C = n."""
+    """Local scan of affine points (B, n, 2, 8) for any width n: the whole
+    row through `point_scan_affine`.  One row spans the whole width, so the
+    offsets are a single identity a batch row and C = n."""
     B, n = xy.shape[:2]
-    local = hillis_steele((lift_affine(xy),), _add, _add_first)[0]
-    return local, curve.identity((B, 1), xy.device), n
+    return point_scan_affine(xy), curve.identity((B, 1), xy.device), n

@@ -10,8 +10,9 @@ With canonical words the point tables ARE these bytes.
 
 The SRS is built on the device from the default tau: tau^i and the
 Lagrange values L_i(tau) = omega^i (tau^n - 1) / (n (tau - omega^i)) as Fr
-vectors, then g[i] = tau^i G and g_lagrange[i] = L_i(tau) G with one
-batched `curve.scalar_mul` (K2 and K3).
+vectors, then g[i] = tau^i G and g_lagrange[i] = L_i(tau) G in one
+`curve.fixed_mul` launch over a window table of G (`g1_window_table`), as
+the JAX package's setup takes them from its fixed_base_msm.
 
 Commitments of full-length columns on a CUDA device with n >= 4096 take the
 fixed-base flat Pippenger of ops/msm_fb.py over per-basis window tables,
@@ -25,19 +26,20 @@ from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from functools import lru_cache
 
 import numpy as np
 import torch
 
-from ..ops import curve, field, frops, msm
-from ..ops.field import FR
+from ..ops import curve, field, frops, msm, scan
+from ..ops.field import FQ, FR
 from ..ops.msm_fb import FixedBaseMsm
 from ..utils import refcrypto as rc
 
 MAGIC = b"H2TPUSRS"
 DEFAULT_TAU_SEED = b"halo2-zkcert-tpu-test-srs"
-# columns per MSM batch: bounds the (columns x 32 windows x n) sorted point
-# tables (96 B a point) that one batch keeps alive
+# columns per MSM batch: bounds the (columns x 32 windows x n) sorted points
+# (64 B a point) and their prefixes (96 B) that one batch keeps alive
 COMMIT_GROUP = 4
 # the fixed-base path: smallest domain that takes it by default, and the
 # window width of its tables
@@ -113,6 +115,20 @@ class ParamsKZG:
         return ParamsKZG(k, tabs[0], tabs[1], pts[0], pts[1])
 
 
+@lru_cache(maxsize=None)
+def g1_window_table(device) -> torch.Tensor:
+    """The table of G that `curve.fixed_mul` reads: (32, 256, 2, 8), at
+    [w, d] the affine point d * 2^(8 w) * G in Montgomery form, [w, 0] zero.
+    The 32 bases come out of one `curve.windows` launch, their multiples
+    1 .. 255 out of a prefix scan of each base repeated, and all of them are
+    normalized in one batched inversion; kept for each device."""
+    gen = curve.from_affine(curve.points_to_device([rc.G1_GEN], device))
+    bases = curve.windows(gen, 8, curve.FIXED_WINDOWS)       # (32, 1, 3, 8)
+    multiples = scan.point_scan(bases.expand(-1, 255, -1, -1))
+    aff = field.to_mont(FQ, curve.to_affine(multiples))
+    return torch.cat((torch.zeros_like(aff[:, :1]), aff), dim=1)
+
+
 def setup(k: int, tau: int | None = None, device="cuda") -> ParamsKZG:
     """SRS for domain size 2^k, built on `device`."""
     from .domain import Domain
@@ -127,9 +143,8 @@ def setup(k: int, tau: int | None = None, device="cuda") -> ParamsKZG:
     scale = (pow(tau, n, rc.FR) - 1) * rc.finv(n, rc.FR) % rc.FR
     li = field.mul_const(FR, field.mul_mont(FR, frops.batch_inv(denom),
                                             dom.omega_pows_mont), scale)
-    gen = curve.from_affine(curve.points_to_device([rc.G1_GEN], device))
-    pts = curve.scalar_mul(gen.expand(2 * n, 3, 8).contiguous(),
-                           torch.cat((tau_pows, li)))
+    pts = curve.fixed_mul(torch.cat((tau_pows, li)),
+                          g1_window_table(torch.device(device)))
     aff = curve.to_affine(pts)
     g2 = (rc.G2_GEN_X, rc.G2_GEN_Y)
     return ParamsKZG(k, aff[:n].contiguous(), aff[n:].contiguous(), g2,

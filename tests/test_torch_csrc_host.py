@@ -1,6 +1,6 @@
 """The kernels' own arithmetic, checked without a GPU: csrc/bn254.cuh's
-__host__ __device__ field, RCB16, tape-interpreter, transform-pass and
-blocked-scan functions, built with
+__host__ __device__ field, RCB16, tape-interpreter, transform-pass,
+blocked-scan and chain functions, built with
 g++ through csrc/host_check.cpp into a small host library, against the
 Python-int oracle and the port's plain versions.  Test-only: the main path
 never loads this library."""
@@ -15,7 +15,7 @@ import torch
 
 from halo2_zkcert_tpu_torch.ops import curve, field, frops, msm_fb, ntt, scan
 from halo2_zkcert_tpu_torch.ops.field import FQ, FR
-from halo2_zkcert_tpu_torch.plonk import quotient
+from halo2_zkcert_tpu_torch.plonk import kzg, quotient
 from halo2_zkcert_tpu_torch.plonk.cs import ConstraintSystem
 from halo2_zkcert_tpu_torch.utils import refcrypto as rc
 
@@ -44,6 +44,11 @@ def hc(tmp_path_factory):
     lib.hc_scan_madd.argtypes = [P, P, P, L, ctypes.c_int]
     lib.hc_point_scan.argtypes = [P, P, L, L, ctypes.c_int, ctypes.c_int]
     lib.hc_point_row_sum.argtypes = [P, P, L, L, ctypes.c_int]
+    lib.hc_point_scan_affine.argtypes = [P, P, P, L, L, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int]
+    lib.hc_point_windows.argtypes = [P, P, L, ctypes.c_int, ctypes.c_int]
+    lib.hc_point_horner.argtypes = [P, P, L, ctypes.c_int, ctypes.c_int]
+    lib.hc_point_fixed_mul.argtypes = [P, P, P, L]
     lib.hc_quotient_forest.argtypes = [P, L, P, P, ctypes.c_int, ctypes.c_int,
                                        ctypes.c_int, P]
     I = ctypes.c_int
@@ -228,6 +233,74 @@ def test_point_row_sum_host(hc, n, lanes):
     hc.hc_point_row_sum(_ptr(P_), _ptr(out), 2, n, lanes)
     assert _affine_list(out) == _affine_list(scan.point_row_sum_plain(P_))
     assert _affine_list(out) == [rc.g1_msm(r, [1] * n) for r in rows]
+
+
+@pytest.mark.parametrize("reverse", [0, 1], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n,run,lanes", [(1, 8, 128), (2, 8, 128),
+                                         (31, 8, 128), (255, 8, 128),
+                                         (1000, 8, 7), (255, 3, 5)])
+def test_point_scan_affine_host(hc, n, run, lanes, reverse):
+    """The affine scan's run routines (scan_run_local_affine, then
+    scan_run_apply) and its reduce half (point_sum_strided_affine) laid out
+    as the kernels lay them out, (0, 0) among the points: equal to the plain
+    version and to the oracle as affine points."""
+    rng = np.random.default_rng(70 + n)
+    base = _points(70 + n, 5) + [(0, 0)]
+    pick = rng.integers(0, len(base), size=(2, n))
+    if n >= 31:
+        pick[:, 2:8] = 1
+        pick[:, 0] = pick[1, -1] = 5
+    rows = [[base[i] for i in row] for row in pick]
+    xy = curve.points_to_device([p for r in rows for p in r],
+                                "cpu").reshape(2, n, 2, 8)
+    out = torch.empty((2, n, 3, 8), dtype=torch.int32)
+    tot = torch.empty((2, 3, 8), dtype=torch.int32)
+    hc.hc_point_scan_affine(_ptr(xy), _ptr(out), _ptr(tot), 2, n, run,
+                            reverse, lanes)
+    assert _affine_list(out) == _affine_list(
+        scan.point_scan_affine_plain(xy, bool(reverse)))
+    sums = [rc.g1_msm(r, [1] * n) for r in rows]
+    assert _affine_list(out[:, 0] if reverse else out[:, -1]) == sums
+    assert _affine_list(tot) == sums
+
+
+@pytest.mark.parametrize("c,nwin", [(1, 4), (3, 5), (16, 2)])
+def test_point_windows_host(hc, c, nwin):
+    """The doubling chain of k_point_windows: every window equal to the
+    plain loop over double_plain, word for word."""
+    P_, _ = _projective_rows(90 + c, 1, 7)
+    P_ = P_[0].contiguous()
+    out = torch.empty((nwin, 7, 3, 8), dtype=torch.int32)
+    hc.hc_point_windows(_ptr(P_), _ptr(out), 7, c, nwin)
+    assert torch.equal(out, curve.windows_plain(P_, c, nwin))
+
+
+@pytest.mark.parametrize("c,nwin", [(8, 32), (2, 3), (0, 4)])
+def test_point_horner_host(hc, c, nwin):
+    """The chain of k_point_horner: equal to the plain Horner word for word
+    (the identity among the windows), and to the oracle's sum."""
+    W, rows = _projective_rows(100 + nwin, 2, nwin)
+    out = torch.empty((2, 3, 8), dtype=torch.int32)
+    hc.hc_point_horner(_ptr(W), _ptr(out), 2, c, nwin)
+    assert torch.equal(out, curve.horner_plain(W, c))
+    assert _affine_list(out) == [
+        rc.g1_msm(r, [1 << (c * w) for w in range(nwin)]) for r in rows]
+
+
+def test_point_fixed_mul_host(hc):
+    """The chain of k_point_fixed_mul over the window table of G: equal to
+    the plain digit loop word for word and to the oracle's s * G; zero
+    bytes, the zero scalar and r - 1 among the scalars."""
+    table = kzg.g1_window_table(torch.device("cpu"))
+    vals = _vals(rc.FR, 12, 20)
+    vals[6:9] = [0x0100FF00000000FF, 1 << 250, 7]
+    s = field.from_ints(FR, vals, "cpu")
+    out = torch.empty((len(vals), 3, 8), dtype=torch.int32)
+    hc.hc_point_fixed_mul(_ptr(table), _ptr(s), _ptr(out), len(vals))
+    assert torch.equal(out, curve.fixed_mul_plain(s, table))
+    G = rc.g1_from_affine(rc.G1_GEN)
+    assert _affine_list(out) == [rc.g1_to_affine(rc.g1_mul(G, v))
+                                 for v in vals]
 
 
 def _toy_cs():

@@ -130,3 +130,46 @@ def test_add_broadcasts_over_leading_axes(shape):
     got = curve.points_from_device(curve.to_affine(curve.add(P, Q))
                                    .reshape(-1, 2, 8))
     assert got == [_oracle_add(p, q) for p, q in zip(ps, qs)]
+
+
+def _random_z(P: torch.Tensor, seed: int) -> torch.Tensor:
+    """Each projective point scaled by its own nonzero Z from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    lead = P.shape[:-2]
+    zs = [int.from_bytes(rng.bytes(32), "little") % (rc.FQ - 1) + 1
+          for _ in range(int(np.prod(lead)))]
+    z = field.from_ints(FQ, zs, "cpu").reshape(lead + (1, 8))
+    return field.mul(FQ, P, z)
+
+
+def _jax_points(P: torch.Tensor) -> tuple:
+    """Canonical (..., 3, 8) words -> the JAX package's coordinate tuple."""
+    lead = P.shape[:-2]
+    return tuple(JFq.from_ints(field.to_ints(P[..., c, :].reshape(-1, 8)))
+                 .reshape(lead + (-1,)) for c in range(3))
+
+
+def _from_jax(JP) -> torch.Tensor:
+    limbs = np.asarray(jnp.stack(JP, axis=-2)).astype(np.int32)
+    return field.from_resident(FQ, torch.from_numpy(limbs))
+
+
+@pytest.mark.parametrize("c,nwin", [(1, 3), (3, 4), (8, 2)])
+def test_windows_match_jax_doublings_and_oracle(c, nwin):
+    """curve.windows (the chain kernel by its plain version): window w is
+    the JAX package's curve.double applied c * w times, projective word for
+    word, and 2^(c w) P as an affine point; the identity stays the
+    identity."""
+    ps = _points(8, 5) + [(0, 0)]
+    P = _random_z(_port(ps), 8)
+    got = curve.windows(P, c, nwin)
+    assert got.shape == (nwin, len(ps), 3, 8)
+    assert torch.equal(got[0], P)
+    JP = _jax_points(P)
+    for w in range(1, nwin):
+        for _ in range(c):
+            JP = jcurve.double(JP)
+        assert torch.equal(got[w], _from_jax(JP))
+        assert curve.points_from_device(curve.to_affine(got[w])) == [
+            rc.g1_to_affine(rc.g1_mul(rc.g1_from_affine(p), 1 << (c * w)))
+            for p in ps]

@@ -1,6 +1,6 @@
-"""Kernels K1-K6, the blocked scans of points and of field elements and the
-transform passes on the card against their plain versions, at small, ragged
-and main-path shapes.
+"""Kernels K1-K6, the blocked scans of points and of field elements, the
+transform passes and the chains of the group law on the card against their
+plain versions, at small, ragged and main-path shapes.
 
 Marked `gpu`: each test decides inside itself whether a CUDA device exists
 and skips without one.  On a machine with a card:
@@ -180,8 +180,9 @@ def test_point_row_sum_kernel(B, n):
 
 def test_fixed_base_msm_on_card():
     """Both scan branches of the fixed-base MSM on the card (whole
-    SCAN_ROW_MAX rows through K6, a ragged width through K5) against the
-    variable-base MSM of the same points and scalars."""
+    SCAN_ROW_MAX rows through K6, a ragged width through the scan of affine
+    points, two launches) against the variable-base MSM of the same points
+    and scalars."""
     dev = _device()
     from halo2_zkcert_tpu_torch.ops import msm
     for n in (64, 37):
@@ -190,9 +191,106 @@ def test_fixed_base_msm_on_card():
         fb = msm_fb.FixedBaseMsm(base, wbits=8)
         kernels.reset_launches()
         got = curve.to_affine(fb.msm_many(cols))
-        assert kernels.launches["scan_madd" if n == 64
-                                else "point_add_mixed"] > 0
+        if n == 64:
+            assert kernels.launches["scan_madd"] > 0
+        else:
+            assert kernels.launches["point_scan_affine"] == 2
+            assert kernels.launches["point_add_mixed"] == 0
         assert torch.equal(got, curve.to_affine(msm.msm_many(base, cols)))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("B,n", SCAN_SHAPES + [(2, 80016)])
+def test_point_scan_affine_kernel(B, n, reverse):
+    """The blocked scan of affine points, (0, 0) among them, against its
+    plain version as affine points; one launch for a row of one tile, two
+    for any longer one."""
+    dev = _device()
+    rng = np.random.default_rng(n + 7)
+    base = torch.cat((_multiples(40, dev), torch.zeros((8, 2, 8),
+                      dtype=torch.int32, device=dev)))
+    pick = rng.integers(0, base.shape[0], size=(B, n))
+    if n >= 31:
+        pick[:, 2:8] = 3
+    xy = base[torch.from_numpy(pick).to(dev)]
+    before = kernels.launches["point_scan_affine"]
+    got = scan.point_scan_affine(xy, reverse=reverse)
+    assert kernels.launches["point_scan_affine"] - before == (
+        1 if n <= scan.TILE else 2)
+    want = scan.point_scan_affine_plain(xy, reverse)
+    assert torch.equal(curve.to_affine(got), curve.to_affine(want))
+
+
+def test_point_scan_affine_kernel_reads_a_slice_in_place(monkeypatch):
+    """Rows whose blocks walk several tiles, read in place from a slice."""
+    dev = _device()
+    monkeypatch.setattr(scan, "MAX_BLOCKS_A_ROW", 2)
+    xy = _multiples(64, dev)[torch.from_numpy(np.random.default_rng(3)
+                                              .integers(0, 64, size=(2, 5002)))
+                             .to(dev)][:, 1:]
+    assert not xy.is_contiguous()
+    got = scan.point_scan_affine(xy)
+    want = scan.point_scan_affine_plain(xy.contiguous())
+    assert torch.equal(curve.to_affine(got), curve.to_affine(want))
+
+
+@pytest.mark.parametrize("n,c,nwin", [(1, 16, 16), (129, 3, 5), (1000, 8, 2),
+                                      (1 << 12, 16, 16)])
+def test_point_windows_kernel(n, c, nwin):
+    """The doubling chains of the window tables: word for word the plain
+    loop over double_plain, one launch."""
+    dev = _device()
+    P = _projective_rows(n, 1, n, dev)[0]
+    before = kernels.launches["point_windows"]
+    got = curve.windows(P, c, nwin)
+    assert kernels.launches["point_windows"] == before + 1
+    assert torch.equal(got, curve.windows_plain(P, c, nwin))
+
+
+@pytest.mark.parametrize("m,c,nwin", [(1, 8, 32), (4, 8, 32), (33, 2, 5)])
+def test_point_horner_kernel(m, c, nwin):
+    """The Horner chain: word for word its plain version, one launch."""
+    dev = _device()
+    W = _projective_rows(m + 50, m, nwin, dev)
+    before = kernels.launches["point_horner"]
+    got = curve.horner(W, c)
+    assert kernels.launches["point_horner"] == before + 1
+    assert torch.equal(got, curve.horner_plain(W, c))
+
+
+def test_point_fixed_mul_kernel():
+    """s * G from the window table of G: word for word the plain digit loop
+    (zero bytes, 0, 1 and r - 1 among the scalars), one launch, and the
+    oracle's points."""
+    dev = _device()
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    table = kzg.g1_window_table(dev)
+    s = _rand(FR, 77, 1000, dev)
+    s[3] = field.from_ints(FR, [0x0100FF00000000FF], dev)[0]
+    before = kernels.launches["point_fixed_mul"]
+    got = curve.fixed_mul(s, table)
+    assert kernels.launches["point_fixed_mul"] == before + 1
+    assert torch.equal(got, curve.fixed_mul_plain(s, table))
+    G = rc.g1_from_affine(rc.G1_GEN)
+    vals = field.to_ints(s[:8])
+    assert curve.points_from_device(curve.to_affine(got[:8])) == [
+        rc.g1_to_affine(rc.g1_mul(G, v)) for v in vals]
+
+
+def test_setup_on_card_equals_setup_on_cpu():
+    """The SRS built on the card (fixed-base multiplication) equals the one
+    built by the plain versions, and takes no doubling or addition
+    launch."""
+    dev = _device()
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    kernels.reset_launches()
+    got = kzg.setup(8, device=dev)
+    assert kernels.launches["point_fixed_mul"] == 1
+    assert kernels.launches["point_double"] == 0
+    assert kernels.launches["point_add"] == 0
+    want = kzg.setup(8, device="cpu")
+    assert torch.equal(got.g.cpu(), want.g)
+    assert torch.equal(got.g_lagrange.cpu(), want.g_lagrange)
 
 
 @pytest.mark.parametrize("k", [0, 1, 3, 8, 10, 11, 13, 17])

@@ -260,6 +260,20 @@ def test_build_tables_matches_reference(ref):
         rc.g1_to_affine(rc.g1_mul(rc.g1_from_affine(pts[5]), 1 << 24))]
 
 
+def test_build_tables_matches_jax_build_tables():
+    """The window tables out of curve.windows (the doubling chains, by
+    their plain version here) against the JAX package's build_tables run
+    live over three points, byte for byte after conversion."""
+    from halo2_zkcert_tpu.ops import msm_fb as jmsm_fb
+    rng = np.random.default_rng(23)
+    G = rc.g1_from_affine(rc.G1_GEN)
+    pts = [rc.g1_to_affine(rc.g1_mul(G, int(s)))
+           for s in rng.integers(1, 1 << 62, size=3)]
+    got = msm_fb.build_tables(curve.points_to_device(pts, "cpu"), 8)
+    want = jmsm_fb.build_tables(jcurve.points_to_device(pts), 8)
+    assert torch.equal(got, msm_fb.tables_from_reference(want, 3, 8))
+
+
 def test_tables_cache_roundtrip_and_stale_shape(ref, tmp_path):
     base = _words(FQ, ref["base16"])[:4]
     path = str(tmp_path / "tab.npy")
@@ -334,13 +348,14 @@ def test_streamed_path_matches_jax_and_oracle(ref, fbs, monkeypatch):
 
 
 def test_ragged_pair_count_takes_the_mixed_add_branch(ref, fbs, monkeypatch):
-    """5 points x 32 windows = 160 pairs, not whole SCAN_ROW_MAX rows."""
+    """5 points x 32 windows = 160 pairs, not whole SCAN_ROW_MAX rows: one
+    scan of the affine points, which adds them by mixed additions."""
     calls = []
-    real = curve.add_mixed
-    monkeypatch.setattr(curve, "add_mixed",
-                        lambda P, Q: calls.append(1) or real(P, Q))
+    real = scan.point_scan_affine
+    monkeypatch.setattr(scan, "point_scan_affine",
+                        lambda xy, *a: calls.append(xy.shape) or real(xy, *a))
     got = _affine(fbs["fb5"](_words(FR, ref["ragged5"]))[None])
-    assert calls == [1]
+    assert calls == [(1, 160, 2, 8)]
     assert got == _pairs(ref["fb_ragged5"][None])
     assert got == [rc.g1_msm(fbs["pts"][:5], _ints(ref["ragged5"]))]
 

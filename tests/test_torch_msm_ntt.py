@@ -1,6 +1,8 @@
 """Port NTT, variable-base MSM and KZG parameters against the JAX package:
 transforms equal as residues, MSM results and commitments equal as affine
-points, and setup(6) equal point for point with the same file bytes."""
+points, setup(6) equal point for point with the same file bytes, the MSM's
+Horner step equal to the JAX package's word for word, and the fixed-base
+multiplication that setup runs equal to the JAX package's fixed_base_msm."""
 import os
 
 import jax.numpy as jnp
@@ -11,6 +13,7 @@ import torch
 from halo2_zkcert_tpu.ops import curve as jcurve
 from halo2_zkcert_tpu.ops import msm as jmsm
 from halo2_zkcert_tpu.ops import ntt as jntt
+from halo2_zkcert_tpu.ops.field import Fq as JFq
 from halo2_zkcert_tpu.ops.field import Fr as JFr
 from halo2_zkcert_tpu.plonk import kzg as jkzg
 from halo2_zkcert_tpu.utils import refcrypto as rc
@@ -185,3 +188,80 @@ def test_commit_many_matches_jax(srs6):
     # a Lagrange commitment equals the monomial commitment of its iNTT
     assert kzg.commit_many_lagrange(params, t[:1]) == kzg.commit_many(
         params, ntt.intt(t[:1], 6))
+
+
+def _window_sums(seed: int, m: int) -> tuple:
+    """(m, 32, 3, 8) projective window sums with random Z, one of them the
+    identity, and the same as affine ints."""
+    rng = np.random.default_rng(seed)
+    pts = [rc.g1_to_affine(rc.g1_mul(G, s)) for s in _rand(rng, 32 * m)]
+    pts[5] = (0, 0)
+    flat = []
+    for x, y in pts:
+        z = int.from_bytes(rng.bytes(32), "little") % (rc.FQ - 1) + 1
+        flat += [0, z, 0] if (x, y) == (0, 0) else [x * z % rc.FQ,
+                                                     y * z % rc.FQ, z]
+    return field.from_ints(FQ, flat, "cpu").reshape(m, 32, 3, 8), pts
+
+
+def test_horner_matches_jax_horner_windows():
+    """curve.horner (one launch on the card, its plain version here) adds
+    in the order of the JAX package's _horner_windows, from the identity: the
+    same projective words, and sum_w 256^w W_w as an affine point."""
+    m = 2
+    W, pts = _window_sums(31, m)
+    got = curve.horner(W, 8)
+    jW = tuple(JFq.from_ints(field.to_ints(
+        W[:, :, c].permute(1, 0, 2).reshape(-1, 8))).reshape(32, m, -1)
+        for c in range(3))
+    want = jmsm._horner_windows(jW)
+    limbs = np.asarray(jnp.stack(want, axis=1)).astype(np.int32)
+    assert torch.equal(got, field.from_resident(FQ, torch.from_numpy(limbs)))
+    assert curve.points_from_device(curve.to_affine(got)) == [
+        rc.g1_msm(pts[32 * j:32 * (j + 1)], [1 << (8 * w) for w in range(32)])
+        for j in range(m)]
+
+
+def _fixed_scalars(seed: int, count: int) -> list:
+    """Random scalars, and 0, 1, r - 1, scalars with zero bytes among
+    nonzero ones and one byte alone."""
+    rng = np.random.default_rng(seed)
+    sc = _rand(rng, count)
+    sc[:6] = [0, 1, rc.FR - 1, 0x0100FF00000000FF, 0x2B << 248, 5]
+    sc[6] = int.from_bytes(bytes(b if i % 3 else 0 for i, b in
+                                 enumerate(rng.bytes(31))), "little")
+    return sc
+
+
+def test_fixed_mul_matches_jax_fixed_base_msm():
+    """curve.fixed_mul over kzg.g1_window_table (the chain kernel by its
+    plain version here) against the JAX package's fixed-base multiplication
+    (kzg.py:87 fixed_base_msm, whose setup takes the SRS from it) and the
+    oracle; the table itself equals the JAX package's window table of G.
+    The JAX side is its chunk program (_fbm_chunk) step for step: its
+    table, its digits, its 32 additions and its normalization; the
+    additions are compiled one at a time (jmsm._jac_add), since compiling
+    all 32 as one program takes the CPU more than ten minutes."""
+    table = kzg.g1_window_table(torch.device("cpu"))
+    jtable = jnp.asarray(jkzg._window_table_cache())
+    assert torch.equal(field.from_mont(FQ, table), field.from_resident(
+        FQ, torch.from_numpy(np.asarray(jtable).astype(np.int32))))
+    sc = _fixed_scalars(40, 24)
+    got = curve.to_affine(curve.fixed_mul(field.from_ints(FR, sc, "cpu"),
+                                          table))
+    digits = jkzg._digits_of(JFr.from_ints(sc))
+    acc = jcurve.identity((len(sc),))
+    for w in range(32):
+        acc = jmsm._jac_add(acc, jcurve.from_affine(jtable[w][digits[:, w]]))
+    want = np.asarray(jcurve.to_affine(acc)).astype(np.int32)
+    assert torch.equal(got, field.from_resident(FQ, torch.from_numpy(want)))
+    assert curve.points_from_device(got) == [
+        rc.g1_to_affine(rc.g1_mul(G, s)) for s in sc]
+
+
+def test_fixed_mul_takes_leading_axes():
+    """Scalars with leading axes: the same as the flat call."""
+    table = kzg.g1_window_table(torch.device("cpu"))
+    s = field.from_ints(FR, _fixed_scalars(41, 8), "cpu")
+    assert torch.equal(curve.fixed_mul(s.reshape(2, 4, 8), table),
+                       curve.fixed_mul(s, table).reshape(2, 4, 3, 8))

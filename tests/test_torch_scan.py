@@ -162,3 +162,67 @@ def test_rows_check_rejects_wrong_shape_and_device():
         scan._rows("point_scan", torch.zeros((2, 3, 2, 8), dtype=torch.int32))
     with pytest.raises(ValueError):
         scan._rows("point_scan", torch.zeros((2, 3, 3, 8), dtype=torch.int32))
+
+
+def _affine_rows(rows):
+    """Rows of affine ints -> (ROWS, n, 2, 8) words, and the JAX package's
+    projective tuple of the same points (its from_affine: (0, 0) is the
+    identity)."""
+    n = len(rows[0])
+    xy = curve.points_to_device([p for row in rows for p in row],
+                                "cpu").reshape(ROWS, n, 2, 8)
+    flat = [c for row in rows for p in row for c in p]
+    jxy = JFq.from_ints(flat).reshape(ROWS, n, 2, -1)
+    return xy, jcurve.from_affine(jxy)
+
+
+def _jax_madd_first(p, c):
+    """Level 1 of the JAX package's local scan in its MSM (msm_fb.py:182):
+    a mixed addition of the later operand, an input point; the identity,
+    which the mixed addition must not be given, leaves p as it is."""
+    inf = jcurve.is_identity(c)[..., None]
+    s = jcurve.add_mixed(p, (c[0], c[1]))
+    return tuple(jnp.where(inf, a, b) for a, b in zip(p, s))
+
+
+@pytest.mark.parametrize("reverse", [False, True], ids=["forward", "reverse"])
+@pytest.mark.parametrize("n", SIZES)
+def test_point_scan_affine_matches_oracle_and_jax(cases, n, reverse):
+    """The scan of affine points with (0, 0) among them: its plain version
+    against the oracle's prefixes, and the JAX package's
+    prefix_scan_batched_local with the mixed addition at level 1, as
+    affine points; equal as group elements to the projective scan of the
+    same points."""
+    c = cases(n)
+    xy, jxs = _affine_rows(c["rows"])
+    got = scan.point_scan_affine(xy, reverse=reverse)
+    assert got.shape == (ROWS, n, 3, 8) and got.dtype == torch.int32
+    want = [p for row in c["rows"] for p in _oracle_prefix(row, reverse)]
+    assert _affine(got) == want
+    if reverse:
+        jxs = tuple(a[:, ::-1] for a in jxs)
+    local, off, C = jscan.prefix_scan_batched_local(
+        jcurve.add, lambda: jcurve.identity((1,)), jxs,
+        combine_first=_jax_madd_first)
+    assert C == n and not np.asarray(off[2]).any()      # one identity offset
+    if reverse:
+        local = tuple(a[:, ::-1] for a in local)
+    limbs = np.asarray(jnp.stack(local, axis=2)).astype(np.int32)
+    assert _affine(field.from_resident(FQ, torch.from_numpy(limbs))) == want
+    assert torch.equal(got, scan.point_scan_affine_plain(xy, reverse))
+    assert _affine(scan.point_scan(curve.from_affine(xy), reverse)) == want
+
+
+def test_local_scan_is_the_affine_scan(cases):
+    """prefix_scan_batched_local: the affine scan over the whole width, one
+    identity offset a row."""
+    xy, _ = _affine_rows(cases(31)["rows"])
+    local, off, C = scan.prefix_scan_batched_local(xy)
+    assert C == 31 and torch.equal(local, scan.point_scan_affine(xy))
+    assert torch.equal(off, curve.identity((ROWS, 1)))
+
+
+def test_affine_rows_check_rejects_projective_points():
+    with pytest.raises(ValueError):
+        scan._rows("point_scan_affine",
+                   torch.zeros((2, 3, 3, 8), dtype=torch.int32), 2)

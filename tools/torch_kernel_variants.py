@@ -19,7 +19,9 @@ own checks, so each is also held against its plain version, exactly.
 
 Used to decide the tile shape of point_scan.cu, the staging of scan_madd.cu,
 the tile and block size of ntt.cu, where quotient_forest.cu keeps its slots,
-and whether the Montgomery product is inlined or called.
+the block size of point_chain.cu, and whether the Montgomery product is
+inlined or called.  The chain kernels' variants are also compared with the
+source as it stands, word for word.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ sys.path.insert(0, REPO)
 import chip_smoke as cs  # noqa: E402
 from halo2_zkcert_tpu_torch.ops import (curve, frops, kernels,  # noqa: E402
                                         msm_fb, ntt, scan)
+from halo2_zkcert_tpu_torch.utils import refcrypto as rc  # noqa: E402
 
 CALL = "#define H2T_MONT_MUL_CALL"
 HEADER = '#include "bn254.cuh"'
@@ -69,6 +72,12 @@ VARIANTS = {
     "point_ops": {
         "as_built": [],
         "product_called": [(HEADER, CALL + "\n" + HEADER)],
+    },
+    "point_chain": {
+        "as_built": [],
+        "product_inlined": [(CALL, "//")],
+        "64_threads": [("constexpr int PC_THREADS = 128;",
+                        "constexpr int PC_THREADS = 64;")],
     },
     "ntt": {
         "as_built": [],
@@ -171,7 +180,13 @@ def main() -> int:
         xy4, d4 = pick(1 << 17, 64), digits(1 << 17, 64)
         xys, ds = pick(16408, 8), digits(16408, 8)
         Q = flat.roll(1, 0).contiguous()
-        want = None
+        xy_var = cs.sample_affine(dev, 128 << 17, rng).reshape(128, 1 << 17,
+                                                                2, 8)
+        W = flat[:128].reshape(4, 32, 3, 8).contiguous()
+        from halo2_zkcert_tpu_torch.plonk import kzg
+        table = kzg.g1_window_table(dev)
+        sc = cs.random_canonical(rng, 1 << 18, dev, rc.FR)
+        want, chain_want = None, None
         for (src, name), lib in libs.items():
             kernels._libs[src] = lib
             row = {}
@@ -187,7 +202,9 @@ def main() -> int:
                         ("row_sum_4x65535_ms",
                          lambda: scan.point_row_sum(P), 10),
                         ("scan_32x131072_ms",
-                         lambda: scan.point_scan(wide), 3)):
+                         lambda: scan.point_scan(wide), 3),
+                        ("scan_affine_128x131072_ms",
+                         lambda: scan.point_scan_affine(xy_var), 3)):
                     row[key] = cs.kernel_ms(fn, it)[0]
             elif src == "scan_madd":
                 for key, fn, it in (
@@ -211,6 +228,19 @@ def main() -> int:
                             dev, os.path.join(REPO, "build", "rsa_1.pk.vk"),
                             rng)]}[src]()
                 row = {r["name"] + "_ms": r["ms"] for r in recs}
+            elif src == "point_chain":
+                got = [curve.windows(flat, 16, 16), curve.horner(W, 8),
+                       curve.fixed_mul(sc, table)]
+                chain_want = got if chain_want is None else chain_want
+                row["equal_to_as_built"] = all(
+                    bool(torch.equal(a, b)) for a, b in zip(got, chain_want))
+                for key, fn, it in (
+                        ("windows_131072x16x16_ms",
+                         lambda: curve.windows(flat, 16, 16), 3),
+                        ("horner_4x32x8_ms", lambda: curve.horner(W, 8), 10),
+                        ("fixed_mul_262144_ms",
+                         lambda: curve.fixed_mul(sc, table), 5)):
+                    row[key] = cs.kernel_ms(fn, it)[0]
             else:
                 row["point_add_131072_ms"], _ = cs.kernel_ms(
                     lambda: curve.add(flat, Q), 20)
