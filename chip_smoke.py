@@ -30,17 +30,32 @@ Phases, each printing its own line:
      base (the default: a warm-up proof, then a timed one) and once with the
      variable base forced; each proof must verify, a tampered copy must be
      rejected, and the bytes must equal build/rsa_1.proof;
-  5. the kernels' launch counts on each driven path, each counted from 0
+  5. keygen ("keygen_rsa"): the port's RsaCircuit at k=17 through
+     plonk.keygen on the card; its columns (Lagrange and coefficient forms)
+     must equal build/rsa_1.pk.npz, its commitments and transcript hash
+     build/rsa_1.pk.vk's, and the circuit's cache digest that sidecar's;
+  6. the SHA-256 links of the reference's CLI: the k=12 SRS and its window
+     tables ("sha256_setup"), then for build/sha256_1 (the TBS of
+     example_cert_3.pem) and build/sha256_2 (that of example_cert_2.pem)
+     the port's Sha256Circuit, keygen ("sha256_{i}_keygen": the 18 fixed
+     and 2 sigma commitments must equal the committed vk's) and a proof
+     with the default blinding seed ("sha256_{i}_proof": instances and
+     bytes must equal the committed proof, it must verify, and a flipped
+     byte must be rejected).  K4 is also held against its plain version on
+     the SHA-256 tape (80 slots, extended domain 2^14);
+  7. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
      them; the fixed-base proof must launch point_add, point_scan and
      point_row_sum under 100 times together, field_binop under 300 times,
-     ntt at most 8 times and none of the chain kernels; the variable-base
-     proof no point_double, at most 7 point_horner and 10 point_add; the
-     table build no point_double and at most 2 point_windows; the SRS no
-     point_double and no point_add; the ragged MSM two point_scan_affine
-     (its one local scan), three point_add (its one bucket extraction) and
-     no point_add_mixed.  The [shapes] lines give the shapes the point
+     ntt at most 8 times and none of the chain kernels; each SHA-256
+     proof quotient_forest once, and scan_madd and ntt; the RSA keygen
+     K1's product, ntt and scan_madd, and none of the chain kernels; the
+     variable-base proof no point_double, at most 7 point_horner and 10
+     point_add; the table build no point_double and at most 2
+     point_windows; the SRS no point_double and no point_add; the ragged
+     MSM two point_scan_affine (its one local scan), three point_add (its
+     one bucket extraction) and no point_add_mixed.  The [shapes] lines give the shapes the point
      kernels, the transforms and the field scans were called with on each
      path.
 
@@ -551,7 +566,11 @@ def check_affine_scans(device, shapes, rng) -> list:
     return recs
 
 
-def check_quotient(device, vk_path: str, rng) -> dict:
+def check_quotient(device, vk_path: str, rng, name="quotient_forest",
+                   path=None) -> dict:
+    """K4 on the tape of the key at `vk_path` over random Montgomery-form
+    leaves of its extended domain, against its plain version, exactly.
+    `path`: the driven path whose launches the record reports."""
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
     from halo2_zkcert_tpu_torch.sdk import read_vk
@@ -570,19 +589,22 @@ def check_quotient(device, vk_path: str, rng) -> dict:
     err = max_abs_err(got, want)
     ok = torch.equal(got, want)
     nmul = int((tape.ins[:, 0] == quotient.MUL).sum())
-    log(f"[kernels] quotient_forest ext_n={ext_n} leaves={L} "
+    log(f"[kernels] {name} ext_n={ext_n} leaves={L} "
         f"tape={len(tape.ins)} muls={nmul} slots={tape.num_slots}: "
         f"{'exact' if ok else 'MISMATCH'}")
     if not ok:
-        raise AssertionError("quotient_forest disagrees with its plain version")
-    return _record(
-        "quotient_forest", "halo2_zkcert_tpu_torch/csrc/quotient_forest.cu",
+        raise AssertionError(f"{name} disagrees with its plain version")
+    rec = _record(
+        name, "halo2_zkcert_tpu_torch/csrc/quotient_forest.cu",
         "halo2_zkcert_tpu/plonk/quotient_pallas.py:315", err,
         kernel_ms(lambda: quotient.quotient_forest(leaves, consts, tape), 10),
         cuda_ms(lambda: quotient.quotient_forest_plain(leaves, consts, tape),
                 1, 1),
         (L + 1) * ext_n * 32 + consts.numel() * 4,
-        nmul * OPS_PER_MUL * ext_n)
+        nmul * OPS_PER_MUL * ext_n, "quotient_forest")
+    if path is not None:
+        rec["path"] = path
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -756,6 +778,121 @@ def prove(device, label, params, circuit, pk, sig, digest, warmup) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: keygen, and the SHA-256 links
+# ---------------------------------------------------------------------------
+
+def check_keygen_rsa(device, params, circuit, card: str) -> dict:
+    """keygen of the port's RsaCircuit at k=17 on the card (the window
+    tables are already built): its 12 fixed and 3 sigma columns, Lagrange and
+    coefficient forms, equal build/rsa_1.pk.npz, its 15 commitments and
+    transcript_repr equal build/rsa_1.pk.vk's, and the circuit's
+    cache_digest_bytes() that sidecar's cache_digest."""
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import keygen
+    from halo2_zkcert_tpu_torch.sdk import PK_ARRAYS, read_pk
+    path = os.path.join(REPO, "build", "rsa_1.pk")
+    ref = read_pk(path, device, cs=circuit.cs)
+    with open(path + ".vk") as f:
+        stored = json.load(f)["cache_digest"]
+    kernels.reset_launches()
+    with recorded_shapes() as rec:
+        t0 = time.perf_counter()
+        pk = keygen(params, circuit.data)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    checks = {k: torch.equal(getattr(pk, k), getattr(ref, k))
+              for k in PK_ARRAYS}
+    checks["commitments"] = (
+        pk.vk.fixed_commitments == ref.vk.fixed_commitments
+        and pk.vk.permutation_commitments == ref.vk.permutation_commitments)
+    checks["transcript_repr"] = (pk.vk.transcript_repr()
+                                 == ref.vk.transcript_repr())
+    checks["cache_digest"] = circuit.data.cache_digest_bytes().hex() == stored
+    log(f"[keygen] rsa k=17: {len(pk.vk.fixed_commitments)} fixed + "
+        f"{len(pk.vk.permutation_commitments)} sigma columns in {dt:.3f} s "
+        f"as issued ({card}); equal to build/rsa_1.pk: "
+        f"{json.dumps(checks, sort_keys=True)}")
+    log(f"[shapes] keygen_rsa: {json.dumps(rec.shapes, sort_keys=True)}")
+    if not all(checks.values()):
+        raise AssertionError(f"RSA keygen differs from build/rsa_1.pk: "
+                             f"{checks}")
+    return launches
+
+
+def sha256_link(device, params, index: int, pem: str, card: str) -> dict:
+    """One SHA-256 link of the reference's CLI: the TBS of `pem` through
+    the port's Sha256Circuit at k=12, keygen on the card (its 18 fixed and
+    2 sigma commitments equal build/sha256_{index}.pk.vk's), the witness and
+    a proof with the default blinding seed, whose instances and bytes equal
+    build/sha256_{index}.proof; the proof verifies and a flipped byte is
+    rejected.  The launch counts of the keygen and of the proof."""
+    from halo2_zkcert_tpu_torch.cert import extract_tbs_and_sig, parse_pem
+    from halo2_zkcert_tpu_torch.circuits.sha256 import Sha256Circuit
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import (create_proof, keygen, prover,
+                                              verify_proof)
+    from halo2_zkcert_tpu_torch.sdk import Snark, read_vk
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    name = f"sha256_{index}"
+    with open(os.path.join(REPO, "testdata", pem), "rb") as f:
+        tbs, _ = extract_tbs_and_sig(parse_pem(f.read()))
+    circuit = Sha256Circuit.build(len(tbs))
+    assert circuit.data.k == params.k == 12, "SHA-256 links are at k=12"
+    ref_vk = read_vk(os.path.join(REPO, "build", f"{name}.pk.vk"))
+    ref = Snark.read(os.path.join(REPO, "build", f"{name}.proof"))
+    launches = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pk = keygen(params, circuit.data)
+    torch.cuda.synchronize()
+    t_key = time.perf_counter() - t0
+    launches[f"{name}_keygen"] = dict(kernels.launches)
+    same_key = (pk.vk.fixed_commitments == ref_vk.fixed_commitments
+                and pk.vk.permutation_commitments
+                == ref_vk.permutation_commitments
+                and pk.vk.transcript_repr() == ref_vk.transcript_repr())
+    log(f"[keygen] {name}: {len(tbs)}-byte TBS of {pem}, k=12, "
+        f"{len(pk.vk.fixed_commitments)} fixed + "
+        f"{len(pk.vk.permutation_commitments)} sigma columns in {t_key:.3f} "
+        f"s as issued ({card}): "
+        f"{'equal to' if same_key else 'DIFFERENT FROM'} build/{name}.pk.vk")
+    if not same_key:
+        raise AssertionError(f"{name}: key commitments differ from the "
+                             f"reference vk")
+    kernels.reset_launches()
+    with recorded_shapes() as rec:
+        t0 = time.perf_counter()
+        advice, instances = circuit.witness(tbs, device)
+        proof = create_proof(params, pk, advice, instances,
+                             PoseidonTranscript())
+        dt = time.perf_counter() - t0
+    launches[f"{name}_proof"] = dict(kernels.launches)
+    same = ref.proof == proof and ref.instances == instances
+    log(f"[prove] {name}: proof {dt:.3f} s as issued ({card}), "
+        f"{len(proof)} bytes, "
+        f"{'equal to' if same else 'DIFFERENT FROM'} build/{name}.proof, "
+        f"stages {json.dumps(prover.LAST_STAGE_TIMES)}")
+    if not same:
+        raise AssertionError(f"{name}: proof bytes or instances differ from "
+                             f"build/{name}.proof")
+    ok = verify_proof(params, pk.vk, instances, proof, PoseidonTranscript)
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = not verify_proof(params, pk.vk, instances, bytes(bad),
+                                    PoseidonTranscript)
+    except (AssertionError, ValueError):
+        rejected = True                           # an undecodable point
+    log(f"[verify] {name}: accepts the proof: {ok}; rejects a flipped "
+        f"byte: {rejected}")
+    if not (ok and rejected):
+        raise AssertionError(f"{name}: verifier check failed")
+    log(f"[shapes] {name}_proof: {json.dumps(rec.shapes, sort_keys=True)}")
+    return launches
+
+
 def check_launches(launches: dict) -> None:
     """The launch counts each driven path must keep (module docstring)."""
     fb = launches["fixed_base_proof"]
@@ -776,7 +913,17 @@ def check_launches(launches: dict) -> None:
               "point_horner", "point_fixed_mul", "point_scan_affine")
     vb, tb = launches["variable_base_proof"], launches["table_build"]
     srs, rg = launches["srs_setup"], launches["ragged_msm"]
+    kg = launches["keygen_rsa"]
+    sha = [launches[f"sha256_{i}_proof"] for i in (1, 2)]
     rules = (
+        ("each SHA-256 proof: one quotient_forest, scan_madd, ntt",
+         all(p.get("quotient_forest", 0) == 1 and p.get("scan_madd", 0)
+             and p.get("ntt", 0) for p in sha)),
+        ("RSA keygen: field_binop.mul (sigma), ntt (coefficients), scan_madd "
+         "(commitments), no chain kernel",
+         kg.get("field_binop.mul", 0) and kg.get("ntt", 0)
+         and kg.get("scan_madd", 0) and not any(kg.get(k, 0)
+                                                for k in chains)),
         ("fixed-base proof launches no chain kernel",
          not any(fb.get(k, 0) for k in chains)),
         ("variable-base proof: no point_double, 1-7 point_horner, at most 10 "
@@ -829,6 +976,9 @@ def main() -> int:
     recs += check_affine_scans(device, ((128, 1 << 17), (2, 16 * 5001)), rng)
     recs.append(check_quotient(
         device, os.path.join(REPO, "build", "rsa_1.pk.vk"), rng))
+    recs.append(check_quotient(
+        device, os.path.join(REPO, "build", "sha256_1.pk.vk"), rng,
+        "quotient_forest[sha256 tape]", "sha256_1_proof"))
     for r in recs:
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms ({r['issued_ms']:.4f} "
             f"as issued from Python, plain "
@@ -846,15 +996,33 @@ def main() -> int:
     with forced_msm("0"):
         launches["variable_base_proof"] = prove(device, "variable base",
                                                 *link, warmup=False)
+    launches["keygen_rsa"] = check_keygen_rsa(device, params, circuit, card)
+    del params, circuit, pk, link
+    torch.cuda.empty_cache()
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params12 = kzg.setup(12, device=device)
+    params12.fixed_base(lagrange=True)
+    params12.fixed_base(lagrange=False)
+    torch.cuda.synchronize()
+    launches["sha256_setup"] = dict(kernels.launches)
+    log(f"[srs] k=12 and both window tables built on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    for index, pem in ((1, "example_cert_3.pem"), (2, "example_cert_2.pem")):
+        launches.update(sha256_link(device, params12, index, pem, card))
+
     paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm",
-             "table_build", "srs_setup")
+             "table_build", "srs_setup", "keygen_rsa", "sha256_setup",
+             "sha256_1_keygen", "sha256_1_proof", "sha256_2_keygen",
+             "sha256_2_proof")
     for path in paths:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")
     for r in recs:
         r["launches_by_path"] = {p: launches[p].get(r["counter"], 0)
                                  for p in paths}
-        r["launches_path"] = next(
+        r["launches_path"] = r.pop("path", None) or next(
             (p for p in paths if r["launches_by_path"][p] > 0), None)
         r["launches"] = r["launches_by_path"].get(r["launches_path"], 0)
     missing = sorted({r["replaces"] for r in recs}

@@ -314,10 +314,11 @@ enum TapeOp { TAPE_LOAD = 0, TAPE_CONST = 1, TAPE_ADD = 2, TAPE_SUB = 3,
               TAPE_MUL = 4 };
 
 // The largest slot count a kernel is built for: quotient_forest.cu
-// instantiates 8, 12, 17, 24, 32 and this (plonk/quotient.py SLOT_SIZES); 48
-// slots of 128 rows are 192 KB of the 227 KB a block may have, should they
-// lie in shared memory.
-static const int TAPE_MAX_SLOTS = 48;
+// instantiates 8, 12, 17, 24, 32, 48 and this (plonk/quotient.py
+// SLOT_SIZES).  The SHA-256 tape needs 80 slots once its leaves are
+// rematerialized: 2.5 KB a row in local memory, which the L1 and L2 caches
+// hold; in shared memory 96 slots of 128 rows (384 KB) would not fit a block.
+static const int TAPE_MAX_SLOTS = 96;
 
 H2T_HD Fe load_fe(const uint32_t* src) {
   Fe r;

@@ -20,11 +20,15 @@
 // two 16-byte loads.  The kernel is instantiated for a few slot counts
 // (8 to TAPE_MAX_SLOTS) and a tape runs on the smallest that holds it.  A
 // row's slots are a local array, which the L1 cache holds (17 slots of 128
-// rows are 68 KB).  With H2T_TAPE_SLOTS_SHARED they are in shared memory
-// instead, one word of one slot of the block's 128 rows side by side, so no
-// two threads of a warp meet in a bank: measured slower on the H100, 1.395
-// against 1.267 ms for the RSA tape, as is the product as a called function
-// (H2T_MONT_MUL_CALL: 2.093 ms, 1.581 ms with shared slots;
+// rows are 68 KB).  The SHA-256 k=12 tape (6785 instructions, 108.6 KB of
+// shared memory, 80 slots once its leaves are rematerialized) runs on 96
+// slots, 384 KB a block, which spill from L1 to L2.  With
+// H2T_TAPE_SLOTS_SHARED the slots are in shared memory instead, one word of
+// one slot of the block's 128 rows side by side, so no two threads of a warp
+// meet in a bank: measured slower on the H100, 1.395 against 1.255 ms for
+// the RSA tape, and it refuses the SHA-256 tape, whose slots do not fit; so
+// is the product as a called function (H2T_MONT_MUL_CALL: 2.077 ms for the
+// RSA tape, 3.152 against 2.585 ms for the SHA-256 tape;
 // tools/torch_kernel_variants.py quotient_forest).
 #include <cuda_runtime.h>
 #include "bn254.cuh"
@@ -81,16 +85,26 @@ template <int SLOTS>
 static int launch(const void* leaves, long long n_rows, const void* consts,
                   const void* tape, int T, int out_slot, void* out,
                   cudaStream_t s) {
-  int smem = T * 16;
+  // the tape, and in the shared variant every row's slots, must fit the
+  // shared memory a block may have; a tape that does not is an error, never
+  // another form of the kernel
+  long long smem = (long long)T * 16;
 #if defined(H2T_TAPE_SLOTS_SHARED)
-  smem += SLOTS * 32 * QF_THREADS;
+  smem += (long long)SLOTS * 32 * QF_THREADS;
 #endif
-  cudaError_t err = cudaFuncSetAttribute(
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin,
+                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return (int)err;
+  if (smem > optin) return (int)cudaErrorInvalidValue;
+  err = cudaFuncSetAttribute(
       k_quotient_forest<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   long long blocks = (n_rows + QF_THREADS - 1) / QF_THREADS;
-  k_quotient_forest<SLOTS><<<(unsigned)blocks, QF_THREADS, smem, s>>>(
+  k_quotient_forest<SLOTS><<<(unsigned)blocks, QF_THREADS, (size_t)smem, s>>>(
       (const uint32_t*)leaves, n_rows, (const uint32_t*)consts,
       (const int32_t*)tape, T, out_slot, (uint32_t*)out);
   return (int)cudaGetLastError();
@@ -107,6 +121,7 @@ extern "C" int h2t_quotient_forest(const void* leaves, long long n_rows,
 #define QF_TRY(N) \
   if (num_slots <= N) \
     return launch<N>(leaves, n_rows, consts, tape, T, out_slot, out, s);
-  QF_TRY(8) QF_TRY(12) QF_TRY(17) QF_TRY(24) QF_TRY(32) QF_TRY(TAPE_MAX_SLOTS)
+  QF_TRY(8) QF_TRY(12) QF_TRY(17) QF_TRY(24) QF_TRY(32) QF_TRY(48)
+  QF_TRY(TAPE_MAX_SLOTS)
   return (int)cudaErrorInvalidValue;
 }

@@ -2,7 +2,7 @@
 from .assignment import BlindingRng, CircuitData
 from .cs import ADVICE, FIXED, INSTANCE, Column, ConstraintSystem
 from .domain import Domain
-from .keygen import ProvingKey, VerifyingKey, from_reference_pk
+from .keygen import ProvingKey, VerifyingKey, from_reference_pk, keygen
 from .kzg import ParamsKZG, gen_srs, setup
 from .prover import create_proof, instance_lagrange
 from .verifier import verify_proof

@@ -37,6 +37,40 @@ class CircuitData:
     def n(self) -> int:
         return 1 << self.k
 
+    def cache_digest_bytes(self) -> bytes:
+        """Digest that tells whether a saved pk was made from this circuit
+        (sdk.gen_pk): the constraint system, k, the instance rows, and a
+        deterministic sample of every fixed column (strided rows, the first
+        and last 64) and of the copy list.  The same blake2b, persona
+        `h2t-pkcache`, as the JAX package's, so a pk either package wrote
+        is recognised by the other's gen_pk."""
+        parts = [self.cs.digest_bytes(),
+                 f"k={self.k};ninst={self.num_instance};"
+                 f"acc={self.accumulator_indices}".encode()]
+        n = self.n
+        step = max(1, n // 2048)
+        rows = sorted(set(range(0, n, step)) | set(range(min(64, n)))
+                      | set(range(max(0, n - 64), n)))
+        for col in self.fixed:
+            parts.append(b"|col|")
+            parts.extend((int(col[r]) % rc.FR).to_bytes(32, "little")
+                         for r in rows)
+        cp = self.copies
+        parts.append(f"ncopies={len(cp)}".encode())
+        cstep = max(1, len(cp) // 4096)
+        sample = list(cp[:256]) + list(cp[-256:]) + list(cp[::cstep])
+        parts.append(repr(sample).encode())
+        return rc.blake2b(b"".join(parts), 32, persona=b"h2t-pkcache")
+
+    def fixed_tensor(self, device) -> torch.Tensor:
+        """(num_fixed, n, 8) canonical words of the fixed columns on
+        `device`, reduced mod r on the host."""
+        out = torch.empty((len(self.fixed), self.n, 8), dtype=torch.int32,
+                          device=device)
+        for i, col in enumerate(self.fixed):
+            out[i] = fops.from_ints(FR, col, device)
+        return out
+
 
 def permutation_mapping(data: CircuitData) -> np.ndarray:
     """Build the sigma mapping from the copy list.

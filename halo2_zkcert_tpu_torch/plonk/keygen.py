@@ -1,8 +1,15 @@
-"""Verifying and proving keys.
+"""Verifying and proving keys, and keygen.
 
-Counterpart of halo2_zkcert_tpu/plonk/keygen.py for the key DATA and the
-vk transcript hash.  Running keygen itself is not ported yet: a proving key
-comes from the JAX package's saved pk through `from_reference_pk`.
+Counterpart of halo2_zkcert_tpu/plonk/keygen.py.  `keygen(params, data)`
+makes a proving key on the SRS's device: the fixed columns, the
+permutation's sigma columns (omega^row' x delta^col' of the next cell in
+each copy cycle, two gathers and one K1 product), their commitments
+through `kzg.commit_many_lagrange` (the fixed-base MSM on the card for
+n >= 4096, its window tables built first) and their coefficient forms
+through the inverse transform (csrc/ntt.cu).  Columns are kept as 8
+canonical words; the JAX package's u8 byte representatives, which it needs
+to fit its 16 GB TPU, are not kept.  A key the JAX package saved is carried
+across with `from_reference_pk` (sdk.read_pk).
 """
 from __future__ import annotations
 
@@ -14,8 +21,10 @@ import torch
 from ..ops import field
 from ..ops.field import FR
 from ..utils import refcrypto as rc
-from .cs import ConstraintSystem
+from .assignment import CircuitData, permutation_mapping
+from .cs import DELTA, ConstraintSystem
 from .domain import Domain
+from .kzg import ParamsKZG, _fb_wanted, commit_many_lagrange
 
 
 @dataclass
@@ -77,6 +86,10 @@ def vk_to_dict(vk: VerifyingKey) -> dict:
 
 def vk_from_dict(d: dict) -> VerifyingKey:
     acc = d.get("accumulator_indices")
+    if isinstance(d["cs"], str):
+        raise ValueError(
+            "legacy pickle-format vk artifact; regenerate it -- pickled "
+            "constraint systems are not loaded")
     return VerifyingKey(
         k=d["k"], cs=ConstraintSystem.from_dict(d["cs"]),
         fixed_commitments=[(int(x), int(y)) for x, y in d["fixed_commitments"]],
@@ -118,3 +131,43 @@ def from_reference_pk(arrays, vk_dict: dict, device="cuda",
         sigma_lagrange=_columns(arrays["sigma_lagrange"], device),
         sigma_coeff=_columns(arrays["sigma_coeff"], device),
     )
+
+
+def sigma_columns(data: CircuitData, dom: Domain) -> torch.Tensor:
+    """(m, n, 8) sigma columns on the domain's device: at (c, r) the value
+    delta^c' omega^r' of the next cell (c', r') of the copy cycle holding
+    (c, r) (`permutation_mapping`)."""
+    mapping = permutation_mapping(data)
+    m, dev = mapping.shape[0], dom.device
+    if not m:
+        return torch.zeros((0, dom.n, 8), dtype=torch.int32, device=dev)
+    delta_pows = field.from_ints(FR, [pow(DELTA, c, rc.FR) for c in range(m)],
+                                 dev)
+    rows = torch.from_numpy(mapping[:, :, 1]).to(dev)
+    cols = torch.from_numpy(mapping[:, :, 0]).to(dev)
+    return field.mul(FR, dom.omega_pows_device[rows], delta_pows[cols])
+
+
+def keygen(params: ParamsKZG, data: CircuitData) -> ProvingKey:
+    """The proving key of `data` on the SRS's device."""
+    assert params.k == data.k, "SRS size must match circuit k"
+    device = params.g.device
+    dom = Domain(data.k, data.cs.quotient_degree, str(device))
+    # the fixed-base tables first, before the key's columns take memory
+    if _fb_wanted(params.n, device):
+        params.fixed_base(lagrange=True)
+    fixed_lag = data.fixed_tensor(device)
+    sigma_lag = sigma_columns(data, dom)
+    vk = VerifyingKey(
+        k=data.k, cs=data.cs,
+        fixed_commitments=commit_many_lagrange(params, fixed_lag),
+        permutation_commitments=commit_many_lagrange(params, sigma_lag),
+        num_instance=list(data.num_instance),
+        accumulator_indices=data.accumulator_indices)
+
+    def coeff(cols):
+        return dom.lagrange_to_coeff(cols) if cols.shape[0] else cols.clone()
+
+    return ProvingKey(vk=vk, fixed_lagrange=fixed_lag,
+                      fixed_coeff=coeff(fixed_lag), sigma_lagrange=sigma_lag,
+                      sigma_coeff=coeff(sigma_lag))

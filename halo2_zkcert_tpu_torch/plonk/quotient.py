@@ -16,6 +16,14 @@ tensor it launches csrc/quotient_forest.cu, on a CPU tensor it runs
 columns.  Rotations never enter the arithmetic: a rotated leaf is a row
 offset.
 
+Slots are allocated greedily, a value's slot freed after its last read.
+The builder memoizes leaves and constants, so a leaf stays live from its
+first read to its last; where that needs more than MEMO_SLOTS slots (the
+SHA-256 forest: 241, the aggregation forest: 49) every LOAD and CONST is
+emitted again just before each instruction that reads it, which keeps the
+SHA-256 tape at 80 slots and the aggregation tape at 7.  The RSA tape (17
+slots) is the memoized one.
+
 Leaves, constants and the result are in MONTGOMERY form (x * R, R = 2^256;
 `field.to_mont` / `field.from_mont`): a MUL is then one Montgomery product
 and nothing is converted per row.  The prover keeps the pk's extended
@@ -39,8 +47,10 @@ LOAD, CONST, ADD, SUB, MUL = 0, 1, 2, 3, 4
 _CHAL = -1            # while lowering only: a challenge load, patched to CONST
 # slot counts csrc/quotient_forest.cu is instantiated for; a tape runs on the
 # smallest that holds it.  The last is TAPE_MAX_SLOTS of csrc/bn254.cuh.
-SLOT_SIZES = (8, 12, 17, 24, 32, 48)
+SLOT_SIZES = (8, 12, 17, 24, 32, 48, 96)
 MAX_SLOTS = SLOT_SIZES[-1]
+# a memoized tape of more slots than this is rematerialized (`_rematerialize`)
+MEMO_SLOTS = 48
 AUX = ("l0", "llast", "lblind", "ident", "zh_inv")
 
 
@@ -114,37 +124,74 @@ class _Builder:
     def mul(self, a, b):
         return self._emit(MUL, a, b)
 
-    def finish(self, out: int, num_challenges: int) -> Tape:
+    def finish(self, out: int, num_challenges: int,
+               rematerialize: bool | None = None) -> Tape:
+        """`rematerialize`: None to rematerialize the leaves only where the
+        memoized tape needs more than MEMO_SLOTS slots (and to require that
+        the kernel holds the result); True or False to force either form,
+        of any slot count (for the plain version)."""
         for ins in self.ins:
             if ins[0] == _CHAL:
                 ins[0], ins[2] = CONST, len(self.consts) + ins[2]
-        # slot allocation: free an operand's slot after its last use
-        last = {}
-        for t, (op, dst, a, b) in enumerate(self.ins):
-            if op in (ADD, SUB, MUL):
-                last[a] = t
-                last[b] = t
-        last[out] = len(self.ins)
-        slot_of, free, top = {}, [], 0
-        rows = []
-        for t, (op, dst, a, b) in enumerate(self.ins):
-            if op in (ADD, SUB, MUL):
-                sa, sb = slot_of[a], slot_of[b]
-                for v in {a, b}:
-                    if last[v] == t:
-                        free.append(slot_of[v])
-                a, b = sa, sb
-            if free:
-                s = free.pop()
-            else:
-                s, top = top, top + 1
-            slot_of[dst] = s
-            rows.append([op, s, a, b])
-            if last.get(dst, -1) < t:        # never read again
-                free.append(s)
-        assert top <= MAX_SLOTS, f"tape needs {top} slots > {MAX_SLOTS}"
+        rows, out_slot, top = _allocate(self.ins, out)
+        if rematerialize or (rematerialize is None and top > MEMO_SLOTS):
+            rows, out_slot, top = _allocate(*_rematerialize(self.ins, out))
+        assert rematerialize is not None or top <= MAX_SLOTS, \
+            f"tape needs {top} slots > {MAX_SLOTS}"
         return Tape(np.asarray(rows, dtype=np.int32).reshape(-1, 4),
-                    slot_of[out], list(self.consts), top, num_challenges)
+                    out_slot, list(self.consts), top, num_challenges)
+
+
+def _rematerialize(ins: list, out: int) -> tuple:
+    """The same program with every LOAD and CONST emitted again just before
+    each instruction that reads it, so that no leaf stays live between its
+    uses: (instructions, out)."""
+    leaf = {dst: (op, a, b) for op, dst, a, b in ins if op in (LOAD, CONST)}
+    res, rename = [], {}
+    for op, dst, a, b in ins:
+        if op not in (ADD, SUB, MUL):
+            continue
+        fresh = {}
+        for v in (a, b):
+            if v in leaf and v not in fresh:
+                fresh[v] = len(res)
+                res.append([leaf[v][0], len(res), *leaf[v][1:]])
+        a, b = (fresh[v] if v in fresh else rename[v] for v in (a, b))
+        rename[dst] = len(res)
+        res.append([op, len(res), a, b])
+    if out in leaf:
+        rename[out] = len(res)
+        res.append([leaf[out][0], len(res), *leaf[out][1:]])
+    return res, rename[out]
+
+
+def _allocate(ins: list, out: int) -> tuple:
+    """Greedy slot allocation of an SSA program, an operand's slot freed
+    after its last use: (rows, the result's slot, slots used)."""
+    last = {}
+    for t, (op, dst, a, b) in enumerate(ins):
+        if op in (ADD, SUB, MUL):
+            last[a] = t
+            last[b] = t
+    last[out] = len(ins)
+    slot_of, free, top = {}, [], 0
+    rows = []
+    for t, (op, dst, a, b) in enumerate(ins):
+        if op in (ADD, SUB, MUL):
+            sa, sb = slot_of[a], slot_of[b]
+            for v in {a, b}:
+                if last[v] == t:
+                    free.append(slot_of[v])
+            a, b = sa, sb
+        if free:
+            s = free.pop()
+        else:
+            s, top = top, top + 1
+        slot_of[dst] = s
+        rows.append([op, s, a, b])
+        if last.get(dst, -1) < t:        # never read again
+            free.append(s)
+    return rows, slot_of[out], top
 
 
 def leaf_layout(csys) -> dict:
@@ -169,9 +216,11 @@ def leaf_layout(csys) -> dict:
     return cols
 
 
-def compile_tape(csys, n: int, ext_n: int) -> Tape:
+def compile_tape(csys, n: int, ext_n: int,
+                 rematerialize: bool | None = None) -> Tape:
     """Lower the quotient forest of `csys` (the same terms, in the same
-    order, as the reference's make_kernel / pointwise)."""
+    order, as the reference's make_kernel / pointwise); `rematerialize` as
+    `_Builder.finish` takes it."""
     stride = ext_n // n
     cols = leaf_layout(csys)
     bld = _Builder()
@@ -263,7 +312,7 @@ def compile_tape(csys, n: int, ext_n: int) -> Tape:
         acc(bld.mul(l0, bld.sub(a_p, s_p)))
         acc(bld.mul(bld.mul(active, bld.sub(a_p, s_p)), bld.sub(a_p, a_prev)))
     out = bld.mul(h, leaf("aux", "zh_inv"))
-    return bld.finish(out, 4 + csys.num_challenges)
+    return bld.finish(out, 4 + csys.num_challenges, rematerialize)
 
 
 # ---------------------------------------------------------------------------

@@ -414,3 +414,49 @@ def test_quotient_kernel():
                                  tape.num_challenges)
             assert torch.equal(quotient.quotient_forest(leaves, consts, wide),
                                got)
+
+
+def test_quotient_kernel_sha256_tape():
+    """The SHA-256 forest's tape (leaves rematerialized, 80 slots) runs on
+    the kernel's 96-slot instantiation and equals its plain version."""
+    dev = _device()
+    from halo2_zkcert_tpu_torch.circuits.sha256 import build_cs
+    cs, _ = build_cs()
+    tape = quotient.compile_tape(cs, 16, 64)
+    assert quotient.SLOT_SIZES[-2] < tape.num_slots <= quotient.SLOT_SIZES[-1]
+    L = len(quotient.leaf_layout(cs))
+    leaves = _rand(FR, 7, L * 64, dev).reshape(L, 64, 8)
+    consts = tape.const_table(_rand(FR, 8, tape.num_challenges, dev))
+    before = kernels.launches["quotient_forest"]
+    got = quotient.quotient_forest(leaves, consts, tape)
+    assert kernels.launches["quotient_forest"] == before + 1
+    assert torch.equal(got, quotient.quotient_forest_plain(leaves, consts,
+                                                           tape))
+
+
+@pytest.mark.parametrize("fb", ["0", "1"])
+def test_keygen_on_the_card(fb, monkeypatch):
+    """keygen of the SHA-256 circuit at a short message (k=9) on the card,
+    through either MSM, equals the JAX key of tests/data/sha256_reference.npz:
+    columns, commitments and the vk's transcript hash."""
+    import json
+    import os
+    from halo2_zkcert_tpu_torch.circuits.sha256 import Sha256Circuit
+    from halo2_zkcert_tpu_torch.plonk import from_reference_pk, keygen, setup
+    from halo2_zkcert_tpu_torch.sdk import PK_ARRAYS
+    dev = _device()
+    monkeypatch.setenv("H2T_FB_MSM", fb)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.setenv("PARAMS_DIR", os.path.join(root, "no-such-dir"))
+    z = np.load(os.path.join(root, "tests", "data", "sha256_reference.npz"))
+    circuit = Sha256Circuit.build(101)
+    ref = from_reference_pk({k: z[k] for k in PK_ARRAYS},
+                            json.loads(z["vk_json"].tobytes()), dev)
+    kernels.reset_launches()
+    pk = keygen(setup(circuit.data.k, device=dev), circuit.data)
+    assert kernels.launches["field_binop.mul"] and kernels.launches["ntt"]
+    for name in PK_ARRAYS:
+        assert torch.equal(getattr(pk, name), getattr(ref, name)), name
+    assert pk.vk.fixed_commitments == ref.vk.fixed_commitments
+    assert pk.vk.permutation_commitments == ref.vk.permutation_commitments
+    assert pk.vk.transcript_repr() == ref.vk.transcript_repr()

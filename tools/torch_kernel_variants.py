@@ -228,6 +228,17 @@ def main() -> int:
                             dev, os.path.join(REPO, "build", "rsa_1.pk.vk"),
                             rng)]}[src]()
                 row = {r["name"] + "_ms": r["ms"] for r in recs}
+                if src == "quotient_forest":
+                    # the SHA-256 tape's 96 slots do not fit shared memory:
+                    # the shared variants must refuse it, not run
+                    try:
+                        r = cs.check_quotient(
+                            dev, os.path.join(REPO, "build",
+                                              "sha256_1.pk.vk"), rng,
+                            "quotient_forest[sha256 tape]")
+                        row[r["name"] + "_ms"] = r["ms"]
+                    except RuntimeError as e:
+                        row["sha256_tape"] = f"refused: {e}"
             elif src == "point_chain":
                 got = [curve.windows(flat, 16, 16), curve.horner(W, 8),
                        curve.fixed_mul(sc, table)]
