@@ -4,7 +4,11 @@
 
 Phases, each printing its own line:
   1. build the hand-written kernels (csrc/*.cu, one nvcc per source, in
-     parallel) and print the card's name and power limit;
+     parallel) and the transcripts' host library (csrc/hostmath.cpp, g++),
+     and print the card's name and power limit; hold the host library
+     against its plain versions (the [native] lines: the Poseidon
+     permutation on 1000 seeded states, Keccak-256 at lengths 0, 1, 135,
+     136, 137 and 1000) and print the host's microseconds a call of each;
   2. hold each kernel against its plain PyTorch version on the card at the
      shapes of the main path, and time both: the kernel's device time with
      its launches queued behind a spin of the device (`kernel_ms`; "ms" in
@@ -43,7 +47,23 @@ Phases, each printing its own line:
      bytes must equal the committed proof, it must verify, and a flipped
      byte must be rejected).  K4 is also held against its plain version on
      the SHA-256 tape (80 slots, extended domain 2^14);
-  7. the kernels' launch counts on each driven path, each counted from 0
+  7. the vertical-gate builder's sample circuit (tests/test_builder.py,
+     with a lookup) at k=8 ("builder_sample"): keygen and a proof with the
+     default blinding seed equal tests/data/builder_reference.npz (the
+     JAX package's), the proof verifies and a wrong instance is rejected,
+     MockProver on CUDA tensors is satisfied and reports a corrupted advice
+     cell as the JAX package does ("builder_sample_mock");
+  8. the gate-level SHA-256 of b"abc" at k=15 ("sha256_gate_short", the
+     constraint system of the CLI's size): the k=15 SRS and tables, keygen
+     and a proof equal tests/data/sha256_gate_reference.npz; K4 held
+     against its plain version on that constraint system's tape at k=19
+     (503 instructions, 37 slots, extended domain 2^20);
+  9. the gate-level SHA-256 of the reference CLI ("sha256_gate_cli"): the
+     970-byte TBS of example_cert_3.pem at k=19, the SRS and both window
+     tables, the circuit, keygen, MockProver on the card (satisfied), a
+     proof that verifies and rejects a flipped byte, instances equal to
+     hashlib's digest; each step's wall seconds and the proof's stages;
+ 10. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
      them; the fixed-base proof must launch point_add, point_scan and
@@ -55,7 +75,10 @@ Phases, each printing its own line:
      point_add; the table build no point_double and at most 2
      point_windows; the SRS no point_double and no point_add; the ragged
      MSM two point_scan_affine (its one local scan), three point_add (its
-     one bucket extraction) and no point_add_mixed.  The [shapes] lines give the shapes the point
+     one bucket extraction) and no point_add_mixed; each gate-level proof
+     quotient_forest once and no point_double, the k=19 one ntt, scan_madd
+     and field_scan; MockProver on the card field_binop's product and
+     sum.  The [shapes] lines give the shapes the point
      kernels, the transforms and the field scans were called with on each
      path.
 
@@ -566,21 +589,39 @@ def check_affine_scans(device, shapes, rng) -> list:
     return recs
 
 
-def check_quotient(device, vk_path: str, rng, name="quotient_forest",
-                   path=None) -> dict:
-    """K4 on the tape of the key at `vk_path` over random Montgomery-form
-    leaves of its extended domain, against its plain version, exactly.
-    `path`: the driven path whose launches the record reports."""
+def random_canonical_device(seed: int, count: int, device,
+                            modulus: int) -> torch.Tensor:
+    """(count, 8) uniform-ish canonical words drawn on the device from a
+    seeded generator: for inputs of gigabytes, which numpy would take
+    seconds to draw and the host gigabytes to hold."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    w = torch.randint(0, 1 << 32, (count, 8), generator=gen, device=device,
+                      dtype=torch.int64)
+    w[:, 7] %= (modulus >> 224)                    # top word below p's
+    return w.to(torch.int32)
+
+
+def check_quotient(device, cs, k: int, rng, name="quotient_forest",
+                   path=None, leaves_seed=None) -> dict:
+    """K4 on the tape of constraint system `cs` at 2^k rows over random
+    Montgomery-form leaves of its extended domain, against its plain
+    version, exactly.  `path`: the driven path whose launches the record
+    reports; `leaves_seed`: draw the leaves on the device from this seed
+    (`random_canonical_device`) rather than from `rng`."""
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
-    from halo2_zkcert_tpu_torch.sdk import read_vk
-    vk = read_vk(vk_path)
-    dom = vk.domain(device)
-    tape = quotient.compile_tape(vk.cs, dom.n, dom.extended_n)
-    L = len(quotient.leaf_layout(vk.cs))
+    from halo2_zkcert_tpu_torch.plonk.domain import Domain
+    dom = Domain(k, cs.quotient_degree, str(device))
+    tape = quotient.compile_tape(cs, dom.n, dom.extended_n)
+    L = len(quotient.leaf_layout(cs))
     ext_n = dom.extended_n
-    leaves = random_canonical(rng, L * ext_n, device,
-                              FR.modulus).reshape(L, ext_n, 8)
+    if leaves_seed is None:
+        leaves = random_canonical(rng, L * ext_n, device, FR.modulus)
+    else:
+        leaves = random_canonical_device(leaves_seed, L * ext_n, device,
+                                         FR.modulus)
+    leaves = leaves.reshape(L, ext_n, 8)
     chal = random_canonical(rng, tape.num_challenges, device, FR.modulus)
     consts = tape.const_table(chal)       # Montgomery form, as the leaves are
     got = quotient.quotient_forest(leaves, consts, tape)
@@ -893,6 +934,248 @@ def sha256_link(device, params, index: int, pem: str, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 7-9: the host runtime, the builder, the gate-level SHA-256
+# ---------------------------------------------------------------------------
+
+def check_native(seed: int, card: str) -> None:
+    """The host library (native.py) against its plain versions: the
+    Poseidon permutation on 1000 seeded states (0, 1 and p - 1 among them),
+    Keccak-256 at the rate's edges; the microseconds of a call of each."""
+    from halo2_zkcert_tpu_torch import native
+    from halo2_zkcert_tpu_torch.transcript.poseidon import permute_plain
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    rng = np.random.default_rng(seed)
+    states = [[0, 0, 0], [1, 1, 1], [rc.FR - 1] * 3]
+    while len(states) < 1000:
+        states.append([int.from_bytes(rng.bytes(32), "little") % rc.FR
+                       for _ in range(3)])
+    same = all(native.poseidon_permute(s) == permute_plain(s)
+               for s in states)
+    lengths = (0, 1, 135, 136, 137, 1000)
+    datas = [rng.bytes(n) for n in lengths]
+    same_k = all(native.keccak256(d) == rc.keccak256(d) for d in datas)
+
+    def us(fn, args):
+        t0 = time.perf_counter()
+        for a in args:
+            fn(a)
+        return (time.perf_counter() - t0) / len(args) * 1e6
+
+    log(f"[native] poseidon_permute equals permute_plain on {len(states)} "
+        f"states: {same}; keccak256 equals refcrypto.keccak256 at lengths "
+        f"{list(lengths)}: {same_k}")
+    log(f"[native] host microseconds a call ({card}): poseidon_permute "
+        f"{us(native.poseidon_permute, states):.2f}, permute_plain "
+        f"{us(permute_plain, states[:200]):.2f}; keccak256 of 1000 bytes "
+        f"{us(native.keccak256, [datas[-1]] * 200):.2f}, plain "
+        f"{us(rc.keccak256, [datas[-1]] * 20):.2f}")
+    if not (same and same_k):
+        raise AssertionError("the host library disagrees with its plain "
+                             "versions")
+
+
+def _fixture(name: str) -> dict:
+    z = np.load(os.path.join(REPO, "tests", "data", name))
+    return {"vk": json.loads(z["vk_json"].tobytes()),
+            "instances": json.loads(z["instances_json"].tobytes()),
+            "proof": z["proof_poseidon"].tobytes(),
+            "mock": json.loads(z["mock_corrupted_json"].tobytes())
+            if "mock_corrupted_json" in z.files else None}
+
+
+def _keygen_and_prove(device, name, params, data, advice, instances, ref,
+                      card, launches) -> tuple:
+    """keygen and one proof with the default blinding seed; the commitments
+    and the proof bytes held to `ref` (a fixture of the JAX package), the
+    proof verified and a wrong instance rejected."""
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import (create_proof, keygen, prover,
+                                              verify_proof)
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_to_dict
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    pk = keygen(params, data)
+    torch.cuda.synchronize()
+    t_key = time.perf_counter() - t0
+    launches[f"{name}_keygen"] = dict(kernels.launches)
+    vk = vk_to_dict(pk.vk)
+    same_key = (vk["fixed_commitments"] == ref["vk"]["fixed_commitments"]
+                and vk["permutation_commitments"]
+                == ref["vk"]["permutation_commitments"]
+                and vk["cs"] == ref["vk"]["cs"])
+    log(f"[keygen] {name}: k={data.k}, {len(vk['fixed_commitments'])} fixed "
+        f"+ {len(vk['permutation_commitments'])} sigma columns in "
+        f"{t_key:.3f} s as issued ({card}): "
+        f"{'equal to' if same_key else 'DIFFERENT FROM'} the JAX package's")
+    if not same_key:
+        raise AssertionError(f"{name}: key differs from the JAX package's")
+    kernels.reset_launches()
+    with recorded_shapes() as rec:
+        t0 = time.perf_counter()
+        proof = create_proof(params, pk, advice, instances,
+                             PoseidonTranscript())
+        dt = time.perf_counter() - t0
+    launches[f"{name}_proof"] = dict(kernels.launches)
+    same = proof == ref["proof"] and instances == ref["instances"]
+    log(f"[prove] {name}: proof {dt:.3f} s as issued ({card}), "
+        f"{len(proof)} bytes, "
+        f"{'equal to' if same else 'DIFFERENT FROM'} the JAX package's, "
+        f"stages {json.dumps(prover.LAST_STAGE_TIMES)}")
+    log(f"[shapes] {name}_proof: {json.dumps(rec.shapes, sort_keys=True)}")
+    if not same:
+        raise AssertionError(f"{name}: proof bytes or instances differ from "
+                             f"the JAX package's")
+    ok = verify_proof(params, pk.vk, instances, proof, PoseidonTranscript)
+    bad = [list(instances[0])]
+    bad[0][-1] = (bad[0][-1] + 1) % rc.FR
+    rejected = not verify_proof(params, pk.vk, bad, proof, PoseidonTranscript)
+    log(f"[verify] {name}: accepts the proof: {ok}; rejects a wrong "
+        f"instance: {rejected}")
+    if not (ok and rejected):
+        raise AssertionError(f"{name}: verifier check failed")
+    return pk, proof
+
+
+def builder_sample(device, card: str) -> dict:
+    """The vertical-gate builder's sample circuit (tests/test_builder.py,
+    a range check through a lookup) at k=8 on the card: keygen and a proof
+    equal to tests/data/builder_reference.npz, MockProver on CUDA tensors
+    satisfied, and a corrupted advice cell reported as the JAX package
+    reports it."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "data"))
+    from make_builder_reference import CORRUPT, K, build_sample
+    from halo2_zkcert_tpu_torch.builder import GateBuilder
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import run_mock, setup
+    ref = _fixture("builder_reference.npz")
+    launches = {}
+    data, advice, instances = build_sample(GateBuilder).finalize(
+        K, device=device)
+    _keygen_and_prove(device, "builder_sample", setup(K, device=device),
+                      data, advice, instances, ref, card, launches)
+    kernels.reset_launches()
+    clean = run_mock(data, advice, instances, raise_on_failure=False)
+    bad = advice.clone()
+    col, row = CORRUPT
+    bad[col, row, 0] += 1
+    fails = run_mock(data, bad, instances, raise_on_failure=False)
+    launches["builder_sample_mock"] = dict(kernels.launches)
+    log(f"[mock] builder_sample on {advice.device}: {clean}; advice cell "
+        f"{CORRUPT} plus one: {fails}")
+    if clean or fails != ref["mock"]:
+        raise AssertionError(f"builder_sample: MockProver verdicts differ "
+                             f"from the JAX package's ({ref['mock']})")
+    return launches
+
+
+def sha256_gate_short(device, card: str) -> dict:
+    """The gate-level SHA-256 of b"abc" at k=15 (13 advice columns, the
+    constraint system of the CLI's size): the k=15 SRS and its tables on
+    the card, keygen and a proof equal to
+    tests/data/sha256_gate_reference.npz."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "data"))
+    from make_sha256_gate_reference import K, MSG
+    from halo2_zkcert_tpu_torch.circuits.sha256_gate import Sha256GateCircuit
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import setup
+    ref = _fixture("sha256_gate_reference.npz")
+    launches = {}
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    params = setup(K, device=device)
+    params.fixed_base(lagrange=True)
+    params.fixed_base(lagrange=False)
+    torch.cuda.synchronize()
+    launches["sha256_gate_setup"] = dict(kernels.launches)
+    log(f"[srs] k={K} and both window tables built on the card in "
+        f"{time.perf_counter() - t0:.3f} s ({card})")
+    circ = Sha256GateCircuit(MSG, k=K, device=device)
+    _keygen_and_prove(device, "sha256_gate_short", params, circ.data,
+                      circ.advice, circ.instances, ref, card, launches)
+    return launches, circ.data.cs
+
+
+def sha256_gate_cli(device, card: str) -> dict:
+    """The gate-level SHA-256 of the reference CLI
+    (`prove-unoptimized-sha256`): the 970-byte TBS of example_cert_3.pem at
+    k=19.  The SRS and both window tables on the card, the circuit, keygen,
+    MockProver on the card (satisfied), a proof that verifies and rejects a
+    flipped byte, and instances equal to hashlib's digest.  No JAX proof of
+    this size exists: bytes are held at k=15 (`sha256_gate_short`)."""
+    import hashlib
+    from halo2_zkcert_tpu_torch.cert import extract_tbs_and_sig, parse_pem
+    from halo2_zkcert_tpu_torch.circuits.sha256_gate import Sha256GateCircuit
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import (create_proof, keygen, prover,
+                                              run_mock, setup, verify_proof)
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    with open(os.path.join(REPO, "testdata", "example_cert_3.pem"), "rb") as f:
+        tbs, _ = extract_tbs_and_sig(parse_pem(f.read()))
+    launches, steps = {}, {}
+
+    def step(label, path, fn):
+        kernels.reset_launches()
+        with recorded_shapes() as rec:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            steps[label] = time.perf_counter() - t0
+        if path:
+            launches[path] = dict(kernels.launches)
+            log(f"[shapes] {path}: {json.dumps(rec.shapes, sort_keys=True)}")
+        log(f"[sha256_gate_cli] {label}: {steps[label]:.3f} s ({card})")
+        return out
+
+    def srs():
+        params = setup(19, device=device)
+        params.fixed_base(lagrange=True)
+        params.fixed_base(lagrange=False)
+        return params
+
+    params = step("srs and both window tables", "sha256_gate_cli_setup", srs)
+    circ = step("circuit (record and pack on the host)", None,
+                lambda: Sha256GateCircuit(tbs, k=19, device=device))
+    cs = circ.data.cs
+    log(f"[sha256_gate_cli] {len(tbs)}-byte TBS: {len(circ.gb.values)} cells, "
+        f"{len(circ.data.copies)} copies, {cs.num_advice} advice, "
+        f"{cs.num_fixed} fixed, {cs.num_instance} instance, "
+        f"{len(cs.permutation_columns)} permutation columns, "
+        f"{len(cs.lookups)} lookups")
+    pk = step("keygen", "sha256_gate_cli_keygen",
+              lambda: keygen(params, circ.data))
+    fails = step("run_mock", "sha256_gate_cli_mock",
+                 lambda: run_mock(circ.data, circ.advice, circ.instances,
+                                  raise_on_failure=False))
+    log(f"[mock] sha256_gate_cli on {circ.advice.device}: {fails[:5]}")
+    if fails:
+        raise AssertionError(f"sha256_gate_cli: MockProver: {fails[:5]}")
+    proof = step("proof", "sha256_gate_cli_proof",
+                 lambda: create_proof(params, pk, circ.advice, circ.instances,
+                                      PoseidonTranscript()))
+    log(f"[prove] sha256_gate_cli: {len(proof)} bytes, stages "
+        f"{json.dumps(prover.LAST_STAGE_TIMES)}")
+    ok = step("verify", None, lambda: verify_proof(
+        params, pk.vk, circ.instances, proof, PoseidonTranscript))
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = not verify_proof(params, pk.vk, circ.instances, bytes(bad),
+                                    PoseidonTranscript)
+    except (AssertionError, ValueError):
+        rejected = True                           # an undecodable point
+    digest = circ.instances == [list(hashlib.sha256(tbs).digest())]
+    log(f"[verify] sha256_gate_cli: accepts the proof: {ok}; rejects a "
+        f"flipped byte: {rejected}; instances equal hashlib's digest: "
+        f"{digest}")
+    if not (ok and rejected and digest):
+        raise AssertionError("sha256_gate_cli: verifier or digest check "
+                             "failed")
+    return launches
+
+
 def check_launches(launches: dict) -> None:
     """The launch counts each driven path must keep (module docstring)."""
     fb = launches["fixed_base_proof"]
@@ -915,7 +1198,22 @@ def check_launches(launches: dict) -> None:
     srs, rg = launches["srs_setup"], launches["ragged_msm"]
     kg = launches["keygen_rsa"]
     sha = [launches[f"sha256_{i}_proof"] for i in (1, 2)]
+    gate = [launches[f"{p}_proof"] for p in ("builder_sample",
+                                             "sha256_gate_short",
+                                             "sha256_gate_cli")]
+    cli = launches["sha256_gate_cli_proof"]
+    mocks = [launches[f"{p}_mock"] for p in ("builder_sample",
+                                             "sha256_gate_cli")]
     rules = (
+        ("each gate-level proof: one quotient_forest, no point_double",
+         all(p.get("quotient_forest", 0) == 1 and not p.get("point_double", 0)
+             for p in gate)),
+        ("the k=19 gate-level proof: ntt, scan_madd, field_scan",
+         cli.get("ntt", 0) and cli.get("scan_madd", 0)
+         and cli.get("field_scan", 0)),
+        ("MockProver on the card: its gates through field_binop",
+         all(m.get("field_binop.mul", 0) and m.get("field_binop.add", 0)
+             for m in mocks)),
         ("each SHA-256 proof: one quotient_forest, scan_madd, ntt",
          all(p.get("quotient_forest", 0) == 1 and p.get("scan_madd", 0)
              and p.get("ntt", 0) for p in sha)),
@@ -958,9 +1256,15 @@ def main() -> int:
     device = torch.device("cuda", 0)
     rng = np.random.default_rng(args.seed)
 
+    from halo2_zkcert_tpu_torch import native
     build_s = kernels.build_all(verbose=True)
+    t0 = time.perf_counter()
+    host_lib = native.build()
     card = card_line()
-    log(f"[build] kernels built in {build_s:.3f} s")
+    log(f"[build] kernels built in {build_s:.3f} s; host library "
+        f"{os.path.basename(host_lib)} (g++) in "
+        f"{time.perf_counter() - t0:.3f} s")
+    check_native(args.seed, card)
     log(f"[card] {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     recs = check_field(device, 1 << 19, rng)
@@ -974,11 +1278,14 @@ def main() -> int:
     recs += check_chains(device, 1 << 17, 1 << 18, rng)
     # the variable-base bucket scan of 4 columns, and the ragged MSM's
     recs += check_affine_scans(device, ((128, 1 << 17), (2, 16 * 5001)), rng)
-    recs.append(check_quotient(
-        device, os.path.join(REPO, "build", "rsa_1.pk.vk"), rng))
-    recs.append(check_quotient(
-        device, os.path.join(REPO, "build", "sha256_1.pk.vk"), rng,
-        "quotient_forest[sha256 tape]", "sha256_1_proof"))
+    from halo2_zkcert_tpu_torch.sdk import read_vk
+    for vk_file, rec_name, rec_path in (
+            ("rsa_1.pk.vk", "quotient_forest", None),
+            ("sha256_1.pk.vk", "quotient_forest[sha256 tape]",
+             "sha256_1_proof")):
+        vk = read_vk(os.path.join(REPO, "build", vk_file))
+        recs.append(check_quotient(device, vk.cs, vk.k, rng, rec_name,
+                                   rec_path))
     for r in recs:
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms ({r['issued_ms']:.4f} "
             f"as issued from Python, plain "
@@ -1011,11 +1318,32 @@ def main() -> int:
         f"{time.perf_counter() - t0:.3f} s")
     for index, pem in ((1, "example_cert_3.pem"), (2, "example_cert_2.pem")):
         launches.update(sha256_link(device, params12, index, pem, card))
+    del params12
+    torch.cuda.empty_cache()
+
+    launches.update(builder_sample(device, card))
+    gate_launches, gate_cs = sha256_gate_short(device, card)
+    launches.update(gate_launches)
+    rec = check_quotient(device, gate_cs, 19, rng,
+                         "quotient_forest[sha256_gate tape]",
+                         "sha256_gate_cli_proof", leaves_seed=args.seed)
+    log(f"[kernels] {rec['name']}: {rec['ms']:.4f} ms "
+        f"({rec['issued_ms']:.4f} as issued from Python, plain "
+        f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms by "
+        f"{rec['bound_by']}; {card})")
+    recs.append(rec)
+    torch.cuda.empty_cache()
+    launches.update(sha256_gate_cli(device, card))
 
     paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm",
              "table_build", "srs_setup", "keygen_rsa", "sha256_setup",
              "sha256_1_keygen", "sha256_1_proof", "sha256_2_keygen",
-             "sha256_2_proof")
+             "sha256_2_proof", "builder_sample_keygen",
+             "builder_sample_proof", "builder_sample_mock",
+             "sha256_gate_setup", "sha256_gate_short_keygen",
+             "sha256_gate_short_proof", "sha256_gate_cli_setup",
+             "sha256_gate_cli_keygen", "sha256_gate_cli_mock",
+             "sha256_gate_cli_proof")
     for path in paths:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")

@@ -93,6 +93,41 @@ def from_ints(F: Field, xs, device) -> torch.Tensor:
     return torch.from_numpy(ints_to_words(xs)).to(device)
 
 
+def from_int_array(F: Field, values, device) -> torch.Tensor:
+    """Ints (a list or an object array, any shape) -> (..., 8) canonical
+    tensor, reduced mod p: `from_ints` in bulk, for the millions of cells
+    of a gate-level circuit.  Values in [0, 2^63) and in (p - 2^63, p),
+    which are most cells (bits, words, small negatives), are converted in
+    numpy; only the others go through `int.to_bytes` one by one."""
+    a = np.asarray(values, dtype=object)
+    shape = a.shape
+    a = a.reshape(-1)
+    out = np.zeros((a.size, 8), dtype=np.uint32)
+    small = (a >= 0) & (a < (1 << 63))
+    low = np.zeros(a.size, dtype=np.uint64)
+    low[small] = a[small].astype(np.uint64)
+    out[:, 0], out[:, 1] = low, low >> np.uint64(32)
+    rest = np.nonzero(~small)[0]
+    d = F.modulus - a[rest]
+    neg = (d > 0) & (d < (1 << 63))
+    v = d[neg].astype(np.uint64)
+    # p - v: the low 64 bits, then the borrow into the upper words
+    p_low = np.uint64(F.modulus & ((1 << 64) - 1))
+    w = np.tile(np.array(F.p32, dtype=np.uint32), (v.size, 1))
+    diff = p_low - v
+    w[:, 0], w[:, 1] = diff, diff >> np.uint64(32)
+    rows = np.nonzero(v > p_low)[0]
+    for j in range(2, 8):
+        w[rows, j] -= np.uint32(1)
+        rows = rows[w[rows, j] == np.uint32(M32)]
+    out[rest[neg]] = w
+    other = rest[~neg]
+    if other.size:
+        out[other] = ints_to_words(int(x) % F.modulus for x in a[other])
+    return torch.from_numpy(out.view(np.int32).reshape(shape + (8,))).to(
+        device)
+
+
 def const(F: Field, v: int, device) -> torch.Tensor:
     """One element as an (8,) tensor."""
     return from_ints(F, [v], device)[0]

@@ -37,7 +37,9 @@ def _sync(device: torch.device) -> None:
 
 
 def instance_lagrange(vals: list, n: int, device) -> torch.Tensor:
-    return field.from_ints(FR, list(vals) + [0] * (n - len(vals)), device)
+    out = torch.zeros((n, 8), dtype=torch.int32, device=device)
+    out[:len(vals)] = field.from_ints(FR, vals, device)
+    return out
 
 
 def _eval_expr_lagrange(e: ex.Expr, n: int, advice, fixed, instance,

@@ -19,13 +19,16 @@ points 32-byte compressed (x LE, sign-of-y in bit 7 of byte 31), scalars
 """
 from __future__ import annotations
 
+from .. import native
 from ..utils import refcrypto as rc
 from . import poseidon as _poseidon
 from .poseidon import PoseidonSponge, permute, poseidon_constants
 
 
 def _keccak(data: bytes) -> bytes:
-    return rc.keccak256(data)
+    """Keccak-256 in the host library (native.py); utils/refcrypto.py
+    `keccak256` is its plain version."""
+    return native.keccak256(data)
 
 # Fq-over-Fr limb decomposition for point absorption & accumulator
 # exposure.  The reference uses halo2-ecc's CRT width LIMBS=3, BITS=88

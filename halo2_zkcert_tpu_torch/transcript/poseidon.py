@@ -17,8 +17,8 @@ r_p)` / halo2_gadgets `grain.rs` use):
 * MDS: Cauchy matrix mds[i][j] = 1/(x_i + y_j) from 2*T non-rejected samples.
 
 The transcript is sequential Fiat-Shamir glue between device kernel launches
-— it stays on host as exact Python ints (a few hundred permutations per
-proof; microseconds each).
+— it stays on the host (a few hundred permutations per proof), in the C++
+host library over BN254 Fr (`permute`), in Python ints in `permute_plain`.
 
 NOTE(verify-upstream): bit-exactness vs the pinned Rust crates cannot be
 executed in this environment (no Rust toolchain, no vendored source). The
@@ -31,6 +31,7 @@ from __future__ import annotations
 
 from functools import lru_cache
 
+from .. import native
 from ..utils import refcrypto as rc
 
 # Transcript parameters used by snark-verifier (SURVEY.md §2b row snark-verifier)
@@ -131,9 +132,19 @@ def _sbox(x: int, p: int) -> int:
 def permute(state: list, modulus: int = rc.FR) -> list:
     """Standard HADES Poseidon permutation (T=3, R_F=8, R_P=57).
 
+    Over BN254 Fr it runs in the host library (native.py,
+    csrc/hostmath.cpp); `permute_plain` is the same function in Python,
+    the plain version that library is tested against."""
+    if modulus == rc.FR:
+        return native.poseidon_permute(state)
+    return permute_plain(state, modulus)
+
+
+def permute_plain(state: list, modulus: int = rc.FR) -> list:
+    """The permutation in Python ints.
+
     Full rounds: add-constants, sbox all, MDS.  Partial: sbox lane 0 only.
     Algebraically equal to the PSE crate's "optimized" evaluation.
-
     """
     p = modulus
     rcs, mds = poseidon_constants(p)

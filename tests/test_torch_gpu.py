@@ -460,3 +460,69 @@ def test_keygen_on_the_card(fb, monkeypatch):
     assert pk.vk.fixed_commitments == ref.vk.fixed_commitments
     assert pk.vk.permutation_commitments == ref.vk.permutation_commitments
     assert pk.vk.transcript_repr() == ref.vk.transcript_repr()
+
+
+def _gate_level_proof(dev, data, advice, instances, fixture):
+    """keygen and a proof on the card, held to a fixture of the JAX
+    package (vk commitments, instances, proof bytes)."""
+    import json
+    import os
+    from halo2_zkcert_tpu_torch.plonk import (create_proof, keygen, setup,
+                                              verify_proof)
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_to_dict
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    z = np.load(os.path.join(root, "tests", "data", fixture))
+    ref_vk = json.loads(z["vk_json"].tobytes())
+    assert instances == json.loads(z["instances_json"].tobytes())
+    params = setup(data.k, device=dev)
+    pk = keygen(params, data)
+    assert vk_to_dict(pk.vk) == ref_vk
+    kernels.reset_launches()
+    proof = create_proof(params, pk, advice, instances, PoseidonTranscript())
+    assert kernels.launches["quotient_forest"] == 1
+    assert proof == z["proof_poseidon"].tobytes()
+    assert verify_proof(params, pk.vk, instances, proof, PoseidonTranscript)
+    return z
+
+
+def test_builder_sample_on_the_card(monkeypatch):
+    """The builder's sample at k=8 on the card: its key and proof equal
+    tests/data/builder_reference.npz, and MockProver on CUDA tensors runs
+    its gates on K1 and gives the JAX package's verdicts."""
+    import json
+    import os
+    from halo2_zkcert_tpu_torch.builder import GateBuilder
+    from halo2_zkcert_tpu_torch.plonk import run_mock
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(os.path.join(root, "tests", "data"))
+    from make_builder_reference import CORRUPT, K, build_sample
+    data, advice, instances = build_sample(GateBuilder).finalize(K,
+                                                                 device=dev)
+    assert advice.is_cuda
+    z = _gate_level_proof(dev, data, advice, instances,
+                          "builder_reference.npz")
+    kernels.reset_launches()
+    assert run_mock(data, advice, instances) == []
+    assert kernels.launches["field_binop.mul"]
+    bad = advice.clone()
+    bad[CORRUPT[0], CORRUPT[1], 0] += 1
+    assert run_mock(data, bad, instances, raise_on_failure=False) == \
+        json.loads(z["mock_corrupted_json"].tobytes())
+
+
+def test_sha256_gate_short_on_the_card(monkeypatch):
+    """The gate-level SHA-256 of b"abc" at k=15 on the card: key and proof
+    equal tests/data/sha256_gate_reference.npz; MockProver satisfied."""
+    import os
+    from halo2_zkcert_tpu_torch.circuits.sha256_gate import Sha256GateCircuit
+    from halo2_zkcert_tpu_torch.plonk import run_mock
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(os.path.join(root, "tests", "data"))
+    from make_sha256_gate_reference import K, MSG
+    circ = Sha256GateCircuit(MSG, k=K, device=dev)
+    assert run_mock(circ.data, circ.advice, circ.instances) == []
+    _gate_level_proof(dev, circ.data, circ.advice, circ.instances,
+                      "sha256_gate_reference.npz")

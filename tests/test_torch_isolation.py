@@ -28,6 +28,19 @@ def test_no_forbidden_import_statements():
     assert len(_port_sources()) > 20
 
 
+def test_no_port_module_reads_the_jax_native_directory():
+    """The port's host library is built from its own csrc/hostmath.cpp,
+    never from the JAX package's native/ sources or library."""
+    path_ref = re.compile(r"""["']native["']|native/(hostmath|lib)""")
+    bad = []
+    for path in _port_sources():
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                if path_ref.search(line):
+                    bad.append(f"{os.path.relpath(path, ROOT)}:{i}")
+    assert not bad, bad
+
+
 def test_every_module_imports_with_jax_blocked():
     """In a fresh interpreter where importing jax or the JAX package fails,
     every module of the port and chip_smoke.py still import."""
