@@ -63,6 +63,14 @@ Phases, each printing its own line:
      tables, the circuit, keygen, MockProver on the card (satisfied), a
      proof that verifies and rejects a flipped byte, instances equal to
      hashlib's digest; each step's wall seconds and the proof's stages;
+     then the other kernels at the shapes that this path gave them and no
+     earlier record holds, each against its plain version: the transforms
+     of its 29 fresh columns from 2^19 onto 2^20 and back, its 15 grand
+     products and the batched inversion's 15 x 2^19 row, the row sums of
+     16 columns at 2^19, the mixed-add row scan over a commitment batch's
+     2^25 pairs with their digits, and the k=19 SRS's 2^20 fixed-base
+     products (the window tables are built in 2^17-point slices, phase 2's
+     shape);
  10. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
@@ -185,15 +193,43 @@ def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
     return int(d.abs().max()) if d.numel() else 0
 
 
+def device_generator(rng: np.random.Generator, device) -> torch.Generator:
+    """A generator on `device` seeded from `rng`: every input of a kernel
+    check is drawn on the card, where inputs of gigabytes take no host time
+    or memory, and follows from the run's seed."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(0, 1 << 63)))
+    return gen
+
+
 def random_canonical(rng: np.random.Generator, count: int, device,
                      modulus: int) -> torch.Tensor:
     """(count, 8) uniform-ish canonical words, the first rows 0, 1, p - 1."""
-    w = rng.integers(0, 1 << 32, size=(count, 8), dtype=np.uint64)
+    w = torch.randint(0, 1 << 32, (count, 8), dtype=torch.int64,
+                      generator=device_generator(rng, device), device=device)
     w[:, 7] %= (modulus >> 224)                    # top word below p's
-    edge = [0, 1, modulus - 1]
-    for i, v in enumerate(edge[:count]):
-        w[i] = [(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
-    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+    edge = [[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
+            for v in (0, 1, modulus - 1)][:count]
+    if edge:
+        w[:len(edge)] = torch.tensor(edge, dtype=torch.int64, device=device)
+    return w.to(torch.int32)
+
+
+def random_picks(rng: np.random.Generator, pool: torch.Tensor,
+                 shape) -> torch.Tensor:
+    """Rows of `pool` picked at random into `shape`, drawn on its device."""
+    idx = torch.randint(0, pool.shape[0], tuple(shape), device=pool.device,
+                        generator=device_generator(rng, pool.device))
+    return pool[idx].contiguous()
+
+
+def sorted_digits(rng: np.random.Generator, blocks: int, rows: int, C: int,
+                  device) -> torch.Tensor:
+    """(blocks * rows, C) 16-bit window digits, each block of rows * C in
+    ascending order as a column's sorted digits are."""
+    d = torch.randint(0, 1 << 16, (blocks, rows * C), device=device,
+                      generator=device_generator(rng, device))
+    return d.sort(dim=1).values.to(torch.int32).reshape(blocks * rows, C)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +286,21 @@ def check_field(device, n: int, rng) -> list:
     return recs
 
 
+def _exact_records(src, cases, path=None) -> list:
+    """Records of `cases`, (name, counter, replaces, kernel, plain, bytes,
+    products) each, every kernel equal to its plain version word for word;
+    `path`: the driven path whose launches the records report."""
+    recs = []
+    for name, counter, replaces, kern, plain, nbytes, products in cases:
+        err = _exact(name, kern, plain)
+        recs.append(_record(name, src, replaces, err, kernel_ms(kern, 10),
+                            cuda_ms(plain, 2, 1), nbytes,
+                            OPS_PER_MUL * products, counter))
+        if path is not None:
+            recs[-1]["path"] = path
+    return recs
+
+
 def _exact(name, kern, plain):
     """Run both, compare word for word; the largest word difference."""
     got, want = kern(), plain()
@@ -262,16 +313,17 @@ def _exact(name, kern, plain):
     return max_abs_err(got, want)
 
 
-def check_ntt(device, k: int, cols: int, rng) -> list:
+def check_ntt(device, k: int, cols: int, rng, ek=None, path=None) -> list:
     """The transforms of one proof at their shapes: the inverse transform of
     `cols` fresh columns at 2^k, their coset transform onto the extended
-    domain 2^(k+2) from 2^k coefficients, Montgomery form out, and the
-    inverse coset transform of one Montgomery-form column there.  A
+    domain 2^ek (default k + 2) from 2^k coefficients, Montgomery form out,
+    and the inverse coset transform of one Montgomery-form column there.  A
     transform is k / 2 products an element whatever implements it."""
     from halo2_zkcert_tpu_torch.ops import ntt
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.utils import refcrypto as rc
-    n, ek, g = 1 << k, k + 2, rc.FR_GENERATOR
+    n, g = 1 << k, rc.FR_GENERATOR
+    ek = k + 2 if ek is None else ek
     a = random_canonical(rng, cols * n, device, FR.modulus).reshape(cols, n, 8)
     h = random_canonical(rng, 1 << ek, device, FR.modulus)[None]
     cases = (
@@ -286,15 +338,11 @@ def check_ntt(device, k: int, cols: int, rng) -> list:
          lambda: ntt.coset_intt_plain(h, ek, g, in_mont=True), ek, 1, 1 << ek,
          1 << ek),
     )
-    recs = []
-    for name, kern, plain, kk, B, n_in, n_out in cases:
-        err = _exact(name, kern, plain)
-        recs.append(_record(
-            name, "halo2_zkcert_tpu_torch/csrc/ntt.cu",
-            "halo2_zkcert_tpu/ops/pallas_limbs.py:435", err, kernel_ms(kern, 10),
-            cuda_ms(plain, 2, 1), 32 * B * (n_in + n_out),
-            OPS_PER_MUL * B * n_out * kk // 2, "ntt"))
-    return recs
+    return _exact_records(
+        "halo2_zkcert_tpu_torch/csrc/ntt.cu",
+        [(name, "ntt", "halo2_zkcert_tpu/ops/pallas_limbs.py:435", kern, plain,
+          32 * B * (n_in + n_out), B * n_out * kk // 2)
+         for name, kern, plain, kk, B, n_in, n_out in cases], path)
 
 
 def check_field_scans(device, n: int, rng) -> list:
@@ -327,13 +375,7 @@ def check_field_scans(device, n: int, rng) -> list:
          lambda: frops.field_row_sum(x),
          lambda: frops.tree_sum_batched_plain(x), 32 * 16 * (n + 1), 0),
     )
-    recs = []
-    for name, counter, replaces, kern, plain, nbytes, products in cases:
-        err = _exact(name, kern, plain)
-        recs.append(_record(name, src, replaces, err, kernel_ms(kern, 10),
-                            cuda_ms(plain, 2, 1), nbytes,
-                            OPS_PER_MUL * products, counter))
-    return recs
+    return _exact_records(src, cases)
 
 
 def sample_affine(device, n: int, rng) -> torch.Tensor:
@@ -344,7 +386,7 @@ def sample_affine(device, n: int, rng) -> torch.Tensor:
     aff = curve.points_to_device(
         [rc.g1_to_affine(rc.g1_mul(G, int(s)))
          for s in rng.integers(1, 1 << 62, size=64)], device)
-    return aff[torch.from_numpy(rng.integers(0, 64, size=n)).to(device)]
+    return random_picks(rng, aff, (n,))
 
 
 def sample_points(device, n: int, rng) -> torch.Tensor:
@@ -402,12 +444,10 @@ def check_mixed(device, n: int, rows: int, small_pairs: int, rng) -> list:
          for s in rng.integers(1, 1 << 62, size=64)], device)
 
     def pick(*shape):
-        return aff[torch.from_numpy(rng.integers(0, 64, size=shape))
-                   .to(device)].contiguous()
+        return random_picks(rng, aff, shape)
 
     def digits(R, C):
-        d = np.sort(rng.integers(0, 1 << 16, size=R * C)).astype(np.int32)
-        return torch.from_numpy(d.reshape(R, C)).to(device)
+        return sorted_digits(rng, 1, R, C, device)
 
     P, Q = sample_points(device, n, rng), pick(n)
     P[1:4] = curve.from_affine(Q[1:4])            # P + P
@@ -589,26 +629,12 @@ def check_affine_scans(device, shapes, rng) -> list:
     return recs
 
 
-def random_canonical_device(seed: int, count: int, device,
-                            modulus: int) -> torch.Tensor:
-    """(count, 8) uniform-ish canonical words drawn on the device from a
-    seeded generator: for inputs of gigabytes, which numpy would take
-    seconds to draw and the host gigabytes to hold."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    w = torch.randint(0, 1 << 32, (count, 8), generator=gen, device=device,
-                      dtype=torch.int64)
-    w[:, 7] %= (modulus >> 224)                    # top word below p's
-    return w.to(torch.int32)
-
-
 def check_quotient(device, cs, k: int, rng, name="quotient_forest",
-                   path=None, leaves_seed=None) -> dict:
+                   path=None) -> dict:
     """K4 on the tape of constraint system `cs` at 2^k rows over random
     Montgomery-form leaves of its extended domain, against its plain
     version, exactly.  `path`: the driven path whose launches the record
-    reports; `leaves_seed`: draw the leaves on the device from this seed
-    (`random_canonical_device`) rather than from `rng`."""
+    reports."""
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
     from halo2_zkcert_tpu_torch.plonk.domain import Domain
@@ -616,12 +642,8 @@ def check_quotient(device, cs, k: int, rng, name="quotient_forest",
     tape = quotient.compile_tape(cs, dom.n, dom.extended_n)
     L = len(quotient.leaf_layout(cs))
     ext_n = dom.extended_n
-    if leaves_seed is None:
-        leaves = random_canonical(rng, L * ext_n, device, FR.modulus)
-    else:
-        leaves = random_canonical_device(leaves_seed, L * ext_n, device,
-                                         FR.modulus)
-    leaves = leaves.reshape(L, ext_n, 8)
+    leaves = random_canonical(rng, L * ext_n, device,
+                              FR.modulus).reshape(L, ext_n, 8)
     chal = random_canonical(rng, tape.num_challenges, device, FR.modulus)
     consts = tape.const_table(chal)       # Montgomery form, as the leaves are
     got = quotient.quotient_forest(leaves, consts, tape)
@@ -646,6 +668,96 @@ def check_quotient(device, cs, k: int, rng, name="quotient_forest",
     if path is not None:
         rec["path"] = path
     return rec
+
+
+def check_gate_shapes(device, rng) -> list:
+    """The shapes that the k=19 gate-level path gives the kernels and no
+    earlier record holds, each against its plain version word for word:
+    the transforms of the proof's 29 fresh columns from 2^19 onto 2^20 and
+    back, its 15 grand products and the batched inversion's 15 x 2^19 row
+    (the suffix products), the row sums of 16 columns at 2^19, K6 over one
+    commitment batch (4 columns x 16 windows x 2^19 pairs in rows of 64,
+    each column's digits sorted; in the slots the digits define) and the
+    SRS's 2^20 fixed-base products.  The plain versions of the last two
+    run on row slices, timed together."""
+    from halo2_zkcert_tpu_torch.ops import curve, frops, msm_fb
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    proof, setup = "sha256_gate_cli_proof", "sha256_gate_cli_setup"
+    recs = check_ntt(device, 19, 29, rng, ek=20, path=proof)
+    n = 1 << 19
+    mul, add = ("halo2_zkcert_tpu/ops/pallas_limbs.py:435",
+                "halo2_zkcert_tpu/ops/pallas_limbs.py:441")
+    x = random_canonical(rng, 16 * n, device, FR.modulus).reshape(16, n, 8)
+    x[0, :3] = x[0, 3:6]                   # no zero in the product rows
+    a15, row = x[:15], x[:15].reshape(1, 15 * n, 8)
+    recs += _exact_records("halo2_zkcert_tpu_torch/csrc/field_scan.cu", (
+        (f"field_scan.mul[15x{n}]", "field_scan", mul,
+         lambda: frops.field_scan(a15, "mul"),
+         lambda: frops.field_scan_plain(a15, "mul"), 64 * 15 * n,
+         15 * (n - 1)),
+        (f"field_scan.mul.reverse[1x{15 * n}]", "field_scan", mul,
+         lambda: frops.field_scan(row, "mul", reverse=True),
+         lambda: frops.field_scan_plain(row, "mul", reverse=True),
+         64 * 15 * n, 15 * n - 1),
+        (f"field_row_sum[16x{n}]", "field_row_sum", add,
+         lambda: frops.field_row_sum(x),
+         lambda: frops.tree_sum_batched_plain(x), 32 * 16 * (n + 1), 0),
+    ), proof)
+    del x, a15, row
+
+    def sliced(name, kern, plain, rows, step, mask=None):
+        """kern() against plain(r0, r1) over row slices of `step` rows
+        (under `mask` where given); the plain versions' summed ms."""
+        got, err, plain_ms = kern(), 0, 0.0
+        for r0 in range(0, rows, step):
+            want, ms = timed_once(lambda: plain(r0, r0 + step))
+            g = got[r0:r0 + step]
+            if mask is not None:
+                g, want = g[mask[r0:r0 + step]], want[mask[r0:r0 + step]]
+            if not torch.equal(g, want):
+                raise AssertionError(f"{name} disagrees with its plain "
+                                     f"version (err {max_abs_err(g, want)})")
+            err, plain_ms = max(err, max_abs_err(g, want)), plain_ms + ms
+        log(f"[kernels] {name}: exact"
+            + ("" if mask is None else
+               f" in the {int(mask.sum())} defined slots"))
+        return err, plain_ms
+
+    C, B = msm_fb.SCAN_ROW_MAX, 4
+    R = 16 * n // C
+    xy = sample_affine(device, B * R * C, rng).reshape(B * R, C, 2, 8)
+    d = sorted_digits(rng, B, R, C, device)
+    name = f"scan_madd.digits[{B * R}x{C}]"
+    err, plain_ms = sliced(name, lambda: msm_fb.scan_madd(xy, d),
+                           lambda r0, r1: msm_fb.scan_madd_plain(xy[r0:r1]),
+                           B * R, 1 << 15, msm_fb.scan_madd_defined(d))
+    rec = _record(name, "halo2_zkcert_tpu_torch/csrc/scan_madd.cu",
+                  "halo2_zkcert_tpu/ops/pallas_limbs.py:533", err,
+                  kernel_ms(lambda: msm_fb.scan_madd(xy, d), 10), plain_ms,
+                  5 * 32 * B * R * C, 11 * OPS_PER_MUL * B * R * C,
+                  "scan_madd")
+    recs.append(dict(rec, path=proof))
+    del xy, d
+    torch.cuda.empty_cache()
+
+    table = kzg.g1_window_table(device)
+    m = 2 * n
+    s = random_canonical(rng, m, device, FR.modulus)
+    s[5, :3] = 0                                # zero bytes among the others
+    nonzero = int((s.view(torch.uint8) != 0).sum())
+    name = f"point_fixed_mul[{m}]"
+    err, plain_ms = sliced(name, lambda: curve.fixed_mul(s, table),
+                           lambda r0, r1: curve.fixed_mul_plain(s[r0:r1],
+                                                                table),
+                           m, 1 << 18)
+    rec = _record(name, "halo2_zkcert_tpu_torch/csrc/point_chain.cu",
+                  "halo2_zkcert_tpu/ops/pallas_limbs.py:393", err,
+                  kernel_ms(lambda: curve.fixed_mul(s, table), 5), plain_ms,
+                  table.numel() * 4 + (32 + 96) * m,
+                  11 * OPS_PER_MUL * nonzero, "point_fixed_mul")
+    recs.append(dict(rec, path=setup))
+    return recs
 
 
 # ---------------------------------------------------------------------------
@@ -1326,14 +1438,18 @@ def main() -> int:
     launches.update(gate_launches)
     rec = check_quotient(device, gate_cs, 19, rng,
                          "quotient_forest[sha256_gate tape]",
-                         "sha256_gate_cli_proof", leaves_seed=args.seed)
-    log(f"[kernels] {rec['name']}: {rec['ms']:.4f} ms "
-        f"({rec['issued_ms']:.4f} as issued from Python, plain "
-        f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms by "
-        f"{rec['bound_by']}; {card})")
+                         "sha256_gate_cli_proof")
     recs.append(rec)
     torch.cuda.empty_cache()
     launches.update(sha256_gate_cli(device, card))
+    # after the path, so that its transforms' tables are built on it
+    torch.cuda.empty_cache()
+    recs += check_gate_shapes(device, rng)
+    for r in recs[recs.index(rec):]:
+        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms "
+            f"({r['issued_ms']:.4f} as issued from Python, plain "
+            f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}; {card})")
 
     paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm",
              "table_build", "srs_setup", "keygen_rsa", "sha256_setup",

@@ -306,7 +306,7 @@ class GateBuilder:
         f_vals[:gates.size] = 1
         f_vals[gates.size:] = [v for _, v in self.const_cells]
 
-        words = field.from_int_array(FR, self.values, "cpu")
+        words = field.from_ints(FR, self.values, "cpu")
         advice = torch.zeros((na + nl, n, 8), dtype=torch.int32)
         advice[col, row] = words
         rc_idx = np.array(self.range_checked, dtype=np.int64)

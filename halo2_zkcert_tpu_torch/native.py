@@ -1,9 +1,8 @@
 """The host runtime of the transcripts: Poseidon and Keccak-256 in C++.
 
-csrc/hostmath.cpp is compiled at first use by the host's C++ compiler
-(`$CXX`, else `g++`) into `build/torch_kernels/libhostmath_<hash>.so`,
-named by the hash of the source and the flags as the CUDA kernels are
-(ops/kernels.py), and loaded with ctypes.  A failed build or load raises
+csrc/hostmath.cpp is compiled at first use by g++ (`CXX`) into
+`build/torch_kernels/libhostmath_<hash>.so`, named by the hash of the
+source and the flags as the CUDA kernels are (ops/kernels.py), and loaded with ctypes.  A failed build or load raises
 `RuntimeError` with the compiler's output: there is no fallback to the
 Python versions, which stay as the plain versions the library is tested
 against (transcript/poseidon.py `permute_plain`, utils/refcrypto.py
@@ -24,6 +23,7 @@ from .ops.kernels import BUILD_DIR, CSRC
 from .utils import refcrypto as rc
 
 SOURCE = CSRC / "hostmath.cpp"
+CXX = "g++"
 CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lib = None
@@ -43,8 +43,7 @@ def build() -> Path:
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [os.environ.get("CXX", "g++"), *CXX_FLAGS, str(SOURCE), "-o",
-           str(tmp)]
+    cmd = [CXX, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)]
     try:
         p = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:

@@ -86,20 +86,13 @@ def words_to_ints(arr) -> list:
 
 
 def from_ints(F: Field, xs, device) -> torch.Tensor:
-    """Ints -> (N, 8) canonical tensor (reduced mod p)."""
-    xs = [int(x) % F.modulus for x in xs]
-    if not xs:
-        return torch.zeros((0, 8), dtype=torch.int32, device=device)
-    return torch.from_numpy(ints_to_words(xs)).to(device)
-
-
-def from_int_array(F: Field, values, device) -> torch.Tensor:
-    """Ints (a list or an object array, any shape) -> (..., 8) canonical
-    tensor, reduced mod p: `from_ints` in bulk, for the millions of cells
-    of a gate-level circuit.  Values in [0, 2^63) and in (p - 2^63, p),
-    which are most cells (bits, words, small negatives), are converted in
-    numpy; only the others go through `int.to_bytes` one by one."""
-    a = np.asarray(values, dtype=object)
+    """Ints (an iterable, nested lists or an object array, any shape) ->
+    (..., 8) canonical tensor, reduced mod p.  Values in [0, 2^63) and in
+    (p - 2^63, p), which are most cells of a gate-level circuit (bits,
+    words, small negatives), are converted in numpy; only the others go
+    through `int.to_bytes` one by one."""
+    a = np.asarray(xs if isinstance(xs, np.ndarray) else list(xs),
+                   dtype=object)
     shape = a.shape
     a = a.reshape(-1)
     out = np.zeros((a.size, 8), dtype=np.uint32)

@@ -69,7 +69,7 @@ class CircuitData:
         if not len(self.fixed):
             return torch.zeros((0, self.n, 8), dtype=torch.int32,
                                device=device)
-        return fops.from_int_array(FR, self.fixed, device)
+        return fops.from_ints(FR, self.fixed, device)
 
 
 class CopyArray(Sequence):

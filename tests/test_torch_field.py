@@ -161,11 +161,12 @@ def test_wrapper_refuses_nothing_on_cpu_and_needs_cuda_otherwise():
 
 
 @pytest.mark.parametrize("fname", sorted(FIELDS))
-def test_from_int_array_equals_from_ints(fname):
-    """The bulk conversion of the builder's cells and the fixed columns
-    gives `from_ints`' words on every branch: small, p minus small (with a
-    borrow past the low 64 bits), and the rest, negatives and values of p
-    and above included; an object array keeps its shape."""
+def test_from_ints_equals_per_int_bytes(fname):
+    """`from_ints`' bulk conversion gives the words of `int.to_bytes` of
+    each value mod p on every branch: small, p minus small (with a borrow
+    past the low 64 bits), and the rest, negatives and values of p and
+    above included; a generator is read, an object array keeps its
+    shape."""
     F, _, p = FIELDS[fname]
     rng = np.random.default_rng(5)
     xs = _adversarial(p, rng, 200) + [
@@ -173,10 +174,11 @@ def test_from_int_array_equals_from_ints(fname):
         p - (1 << 64) + 5, p - (p & ((1 << 64) - 1)) - 1, p, p + 5, -1, -7,
         ALL255, 5 * p + 3, 12345678901]
     xs += [p - int(v) for v in rng.integers(1, 1 << 62, 100)]
-    want = field.from_ints(F, xs, "cpu")
-    assert torch.equal(field.from_int_array(F, xs, "cpu"), want)
+    want = torch.from_numpy(field.ints_to_words(x % p for x in xs))
+    assert torch.equal(field.from_ints(F, xs, "cpu"), want)
+    assert torch.equal(field.from_ints(F, (x for x in xs), "cpu"), want)
     grid = np.array(xs[:300], dtype=object).reshape(3, 100)
-    got = field.from_int_array(F, grid, "cpu")
+    got = field.from_ints(F, grid, "cpu")
     assert got.shape == (3, 100, 8)
     assert torch.equal(got.reshape(-1, 8), want[:300])
-    assert field.from_int_array(F, [], "cpu").shape == (0, 8)
+    assert field.from_ints(F, [], "cpu").shape == (0, 8)

@@ -101,7 +101,7 @@ def test_committed_proof_verifies_on_the_native_transcript(name):
 def test_a_failed_build_raises(monkeypatch, tmp_path, compiler):
     monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(native, "_lib", None)
-    monkeypatch.setenv("CXX", compiler)
+    monkeypatch.setattr(native, "CXX", compiler)
     with pytest.raises(RuntimeError, match="host library build failed"):
         native.keccak256(b"abc")
     with pytest.raises(RuntimeError, match="host library build failed"):
