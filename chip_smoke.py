@@ -71,7 +71,31 @@ Phases, each printing its own line:
      2^25 pairs with their digits, and the k=19 SRS's 2^20 fixed-base
      products (the window tables are built in 2^17-point slices, phase 2's
      shape);
- 10. the kernels' launch counts on each driven path, each counted from 0
+ 10. the X.509 aggregation of the reference CLI's `gen-x509-agg-proof`
+     ("x509_agg"): X509VerifierAggregationCircuit over the four committed
+     inner snarks at k=20, lanes 8, na 8, nl 1, fixed-vk mode.  First the
+     circuit as the JAX package records it (`keep_identity_terms=True`):
+     its record pass, the k=20 SRS and both window tables, `sdk.gen_pk`
+     (the vk must equal build/x509_agg.pk.vk field for field: k, instance
+     rows, accumulator indices, constraint system, 58 fixed and 27
+     permutation commitments, cache digest), both phases' advice columns
+     and the instances held to tests/data/aggregation_reference.npz (the
+     JAX package's digests at its tau, the MockProver's challenge), its
+     accumulator must fail the deferred pairing (ROADMAP fault C2) though
+     MockProver on the card is satisfied (on that pass).  Then the port's circuit: record
+     pass, `sdk.gen_pk` (the constraint system of build/x509_agg.pk.vk),
+     MockProver on the card (satisfied), `sdk.gen_snark` with the default
+     blinding seed (its stages and the proof's blake2b),
+     `verify_aggregated` true and false for a flipped byte; each step's
+     seconds and peak device memory.  Then the kernels at the shapes that
+     path gave them and no earlier record holds: the transforms of its 67
+     fresh columns from 2^20 onto 2^22 and back, its 23 grand products and
+     the batched inversion's 23 x 2^20 row, the row sums of 16 columns at
+     2^20, K6 at the proof's launch shapes with digits (65 536 rows x 32,
+     262 192 x 64), the k=20 SRS's 2^21 fixed-base products, and K4 on its
+     tape over 2^22 rows (157 leaves; the plain version on the first 2^18
+     rows);
+ 11. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
      them; the fixed-base proof must launch point_add, point_scan and
@@ -86,9 +110,13 @@ Phases, each printing its own line:
      one bucket extraction) and no point_add_mixed; each gate-level proof
      quotient_forest once and no point_double, the k=19 one ntt, scan_madd
      and field_scan; MockProver on the card field_binop's product and
-     sum.  The [shapes] lines give the shapes the point
-     kernels, the transforms and the field scans were called with on each
-     path.
+     sum; the k=20 aggregation proof quotient_forest once, the transforms,
+     the scans of field elements and of points and K6 and no chain kernel,
+     its keygen K1's product, ntt and scan_madd and no chain kernel, its
+     SRS and tables point_fixed_mul and 16 point_windows (17 where G's
+     table is built on the way).  The [shapes] lines give the shapes the
+     point kernels, the transforms and the field scans were called with
+     on each path.
 
 Any failure exits non-zero.  The line before the last is the kernels' JSON
 record; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -97,6 +125,7 @@ JAX.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import subprocess
@@ -204,15 +233,21 @@ def device_generator(rng: np.random.Generator, device) -> torch.Generator:
 
 def random_canonical(rng: np.random.Generator, count: int, device,
                      modulus: int) -> torch.Tensor:
-    """(count, 8) uniform-ish canonical words, the first rows 0, 1, p - 1."""
-    w = torch.randint(0, 1 << 32, (count, 8), dtype=torch.int64,
-                      generator=device_generator(rng, device), device=device)
-    w[:, 7] %= (modulus >> 224)                    # top word below p's
+    """(count, 8) uniform-ish canonical words, the first rows 0, 1, p - 1;
+    drawn 2^24 rows at a time (a draw is int64 before it is words)."""
+    gen = device_generator(rng, device)
+    out = torch.empty((count, 8), dtype=torch.int32, device=device)
+    for off in range(0, count, 1 << 24):
+        w = torch.randint(0, 1 << 32, (min(1 << 24, count - off), 8),
+                          dtype=torch.int64, generator=gen, device=device)
+        w[:, 7] %= (modulus >> 224)                # top word below p's
+        out[off:off + w.shape[0]] = w.to(torch.int32)
     edge = [[(v >> (32 * j)) & 0xFFFFFFFF for j in range(8)]
             for v in (0, 1, modulus - 1)][:count]
     if edge:
-        w[:len(edge)] = torch.tensor(edge, dtype=torch.int64, device=device)
-    return w.to(torch.int32)
+        out[:len(edge)] = torch.tensor(edge, dtype=torch.int64,
+                                       device=device).to(torch.int32)
+    return out
 
 
 def random_picks(rng: np.random.Generator, pool: torch.Tensor,
@@ -313,12 +348,15 @@ def _exact(name, kern, plain):
     return max_abs_err(got, want)
 
 
-def check_ntt(device, k: int, cols: int, rng, ek=None, path=None) -> list:
+def check_ntt(device, k: int, cols: int, rng, ek=None, path=None,
+              plain_cols=None) -> list:
     """The transforms of one proof at their shapes: the inverse transform of
     `cols` fresh columns at 2^k, their coset transform onto the extended
     domain 2^ek (default k + 2) from 2^k coefficients, Montgomery form out,
     and the inverse coset transform of one Montgomery-form column there.  A
-    transform is k / 2 products an element whatever implements it."""
+    transform is k / 2 products an element whatever implements it.
+    `plain_cols`: run the plain versions on slices of that many columns
+    (a transform is one column's), timed together."""
     from halo2_zkcert_tpu_torch.ops import ntt
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.utils import refcrypto as rc
@@ -328,21 +366,34 @@ def check_ntt(device, k: int, cols: int, rng, ek=None, path=None) -> list:
     h = random_canonical(rng, 1 << ek, device, FR.modulus)[None]
     cases = (
         (f"ntt.inverse[{cols}x{n}]", lambda: ntt.intt(a, k),
-         lambda: ntt.intt_plain(a, k), k, cols, n, n),
+         lambda c0, c1: ntt.intt_plain(a[c0:c1], k), k, cols, n, n),
         (f"ntt.coset.mont[{cols}x{n}->{1 << ek}]",
          lambda: ntt.coset_ntt(a, ek, g, out_mont=True),
-         lambda: ntt.coset_ntt_plain(a, ek, g, out_mont=True), ek, cols, n,
-         1 << ek),
+         lambda c0, c1: ntt.coset_ntt_plain(a[c0:c1], ek, g, out_mont=True),
+         ek, cols, n, 1 << ek),
         (f"ntt.coset_inverse.mont[1x{1 << ek}]",
          lambda: ntt.coset_intt(h, ek, g, in_mont=True),
-         lambda: ntt.coset_intt_plain(h, ek, g, in_mont=True), ek, 1, 1 << ek,
-         1 << ek),
+         lambda c0, c1: ntt.coset_intt_plain(h, ek, g, in_mont=True), ek, 1,
+         1 << ek, 1 << ek),
     )
-    return _exact_records(
-        "halo2_zkcert_tpu_torch/csrc/ntt.cu",
-        [(name, "ntt", "halo2_zkcert_tpu/ops/pallas_limbs.py:435", kern, plain,
-          32 * B * (n_in + n_out), B * n_out * kk // 2)
-         for name, kern, plain, kk, B, n_in, n_out in cases], path)
+    src, replaces = ("halo2_zkcert_tpu_torch/csrc/ntt.cu",
+                     "halo2_zkcert_tpu/ops/pallas_limbs.py:435")
+    if plain_cols is None:
+        return _exact_records(
+            src, [(name, "ntt", replaces, kern,
+                   lambda plain=plain, B=B: plain(0, B),
+                   32 * B * (n_in + n_out), B * n_out * kk // 2)
+                  for name, kern, plain, kk, B, n_in, n_out in cases], path)
+    recs = []
+    for name, kern, plain, kk, B, n_in, n_out in cases:
+        err, plain_ms = _sliced(name, kern, plain, B, plain_cols)
+        recs.append(dict(_record(name, src, replaces, err,
+                                 kernel_ms(kern, 5), plain_ms,
+                                 32 * B * (n_in + n_out),
+                                 OPS_PER_MUL * B * n_out * kk // 2, "ntt"),
+                         path=path))
+        torch.cuda.empty_cache()
+    return recs
 
 
 def check_field_scans(device, n: int, rng) -> list:
@@ -630,11 +681,12 @@ def check_affine_scans(device, shapes, rng) -> list:
 
 
 def check_quotient(device, cs, k: int, rng, name="quotient_forest",
-                   path=None) -> dict:
+                   path=None, plain_rows=None) -> dict:
     """K4 on the tape of constraint system `cs` at 2^k rows over random
     Montgomery-form leaves of its extended domain, against its plain
     version, exactly.  `path`: the driven path whose launches the record
-    reports."""
+    reports.  `plain_rows`: hold only the first that many rows to the plain
+    version, run on that row slice with the rows its rotations read."""
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
     from halo2_zkcert_tpu_torch.plonk.domain import Domain
@@ -647,27 +699,65 @@ def check_quotient(device, cs, k: int, rng, name="quotient_forest",
     chal = random_canonical(rng, tape.num_challenges, device, FR.modulus)
     consts = tape.const_table(chal)       # Montgomery form, as the leaves are
     got = quotient.quotient_forest(leaves, consts, tape)
-    want = quotient.quotient_forest_plain(leaves, consts, tape)
-    torch.cuda.synchronize()
-    err = max_abs_err(got, want)
-    ok = torch.equal(got, want)
+    rows = ext_n if plain_rows is None else plain_rows
+    ptape, pad, idx = tape, 0, slice(None)
+    if rows < ext_n:
+        # the same tape with its row offsets taken from (-ext_n/2, ext_n/2],
+        # so that they read the same rows of a slice as of the whole column
+        ins = tape.ins.copy()
+        load = ins[:, 0] == quotient.LOAD
+        off = ins[load, 3] % ext_n
+        ins[load, 3] = np.where(off > ext_n // 2, off - ext_n, off)
+        ptape = copy.copy(tape)
+        ptape.ins = ins
+        pad = int(np.abs(ins[load, 3]).max())
+        idx = torch.arange(-pad, rows + pad, device=device) % ext_n
+    want, plain_ms = timed_once(lambda: quotient.quotient_forest_plain(
+        leaves[:, idx], consts, ptape))
+    got_rows, want = got[:rows], want[pad:pad + rows]
+    err = max_abs_err(got_rows, want)
+    ok = torch.equal(got_rows, want)
     nmul = int((tape.ins[:, 0] == quotient.MUL).sum())
     log(f"[kernels] {name} ext_n={ext_n} leaves={L} "
         f"tape={len(tape.ins)} muls={nmul} slots={tape.num_slots}: "
-        f"{'exact' if ok else 'MISMATCH'}")
+        f"{'exact' if ok else 'MISMATCH'}"
+        + ("" if rows == ext_n else f" on rows 0-{rows - 1} (plain "
+           f"version on that slice, {pad} rows of rotation either side)"))
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version")
+    del want, got_rows, idx
     rec = _record(
         name, "halo2_zkcert_tpu_torch/csrc/quotient_forest.cu",
         "halo2_zkcert_tpu/plonk/quotient_pallas.py:315", err,
         kernel_ms(lambda: quotient.quotient_forest(leaves, consts, tape), 10),
-        cuda_ms(lambda: quotient.quotient_forest_plain(leaves, consts, tape),
-                1, 1),
+        plain_ms,
         (L + 1) * ext_n * 32 + consts.numel() * 4,
         nmul * OPS_PER_MUL * ext_n, "quotient_forest")
+    if rows < ext_n:
+        rec["plain_rows"] = rows
     if path is not None:
         rec["path"] = path
     return rec
+
+
+def _sliced(name, kern, plain, rows, step, mask=None):
+    """kern() against plain(r0, r1) over slices of `step` rows of its
+    result (under `mask` where given), word for word; the largest word
+    difference and the plain versions' summed ms."""
+    got, err, plain_ms = kern(), 0, 0.0
+    for r0 in range(0, rows, step):
+        want, ms = timed_once(lambda: plain(r0, r0 + step))
+        g = got[r0:r0 + step]
+        if mask is not None:
+            g, want = g[mask[r0:r0 + step]], want[mask[r0:r0 + step]]
+        if not torch.equal(g, want):
+            raise AssertionError(f"{name} disagrees with its plain "
+                                 f"version (err {max_abs_err(g, want)})")
+        err, plain_ms = max(err, max_abs_err(g, want)), plain_ms + ms
+    log(f"[kernels] {name}: exact"
+        + ("" if mask is None else
+           f" in the {int(mask.sum())} defined slots"))
+    return err, plain_ms
 
 
 def check_gate_shapes(device, rng) -> list:
@@ -706,30 +796,12 @@ def check_gate_shapes(device, rng) -> list:
     ), proof)
     del x, a15, row
 
-    def sliced(name, kern, plain, rows, step, mask=None):
-        """kern() against plain(r0, r1) over row slices of `step` rows
-        (under `mask` where given); the plain versions' summed ms."""
-        got, err, plain_ms = kern(), 0, 0.0
-        for r0 in range(0, rows, step):
-            want, ms = timed_once(lambda: plain(r0, r0 + step))
-            g = got[r0:r0 + step]
-            if mask is not None:
-                g, want = g[mask[r0:r0 + step]], want[mask[r0:r0 + step]]
-            if not torch.equal(g, want):
-                raise AssertionError(f"{name} disagrees with its plain "
-                                     f"version (err {max_abs_err(g, want)})")
-            err, plain_ms = max(err, max_abs_err(g, want)), plain_ms + ms
-        log(f"[kernels] {name}: exact"
-            + ("" if mask is None else
-               f" in the {int(mask.sum())} defined slots"))
-        return err, plain_ms
-
     C, B = msm_fb.SCAN_ROW_MAX, 4
     R = 16 * n // C
     xy = sample_affine(device, B * R * C, rng).reshape(B * R, C, 2, 8)
     d = sorted_digits(rng, B, R, C, device)
     name = f"scan_madd.digits[{B * R}x{C}]"
-    err, plain_ms = sliced(name, lambda: msm_fb.scan_madd(xy, d),
+    err, plain_ms = _sliced(name, lambda: msm_fb.scan_madd(xy, d),
                            lambda r0, r1: msm_fb.scan_madd_plain(xy[r0:r1]),
                            B * R, 1 << 15, msm_fb.scan_madd_defined(d))
     rec = _record(name, "halo2_zkcert_tpu_torch/csrc/scan_madd.cu",
@@ -747,7 +819,7 @@ def check_gate_shapes(device, rng) -> list:
     s[5, :3] = 0                                # zero bytes among the others
     nonzero = int((s.view(torch.uint8) != 0).sum())
     name = f"point_fixed_mul[{m}]"
-    err, plain_ms = sliced(name, lambda: curve.fixed_mul(s, table),
+    err, plain_ms = _sliced(name, lambda: curve.fixed_mul(s, table),
                            lambda r0, r1: curve.fixed_mul_plain(s[r0:r1],
                                                                 table),
                            m, 1 << 18)
@@ -760,26 +832,116 @@ def check_gate_shapes(device, rng) -> list:
     return recs
 
 
+def check_agg_shapes(device, rng) -> list:
+    """The shapes that the k=20 aggregation path gives the kernels, each
+    against its plain version word for word: the transforms of the proof's
+    67 fresh columns from 2^20 onto 2^22 and back (the plain versions on
+    slices of 4 columns), its 23 grand products (14 permutation chunks, 9
+    lookups) and the batched inversion's 23 x 2^20 row, the row sums of 16
+    columns at 2^20, K6 at the proof's launch shapes (a chunk of 2^21
+    pairs in 65 536 rows of 32, and 4 x 65 548 rows of 64; each chunk's
+    digits sorted; in the slots the digits define), the k=20 SRS's 2^21
+    fixed-base products, and K4 on the aggregation key's tape over 2^22
+    rows (157 leaves; the plain version on the first 2^18).  The window tables
+    of 2^20 points are built in 2^17-point slices, phase 2's shape
+    (`point_windows` there)."""
+    from halo2_zkcert_tpu_torch.ops import curve, frops, msm_fb
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    from halo2_zkcert_tpu_torch.sdk import read_vk
+    proof, setup = "x509_agg_proof", "x509_agg_setup"
+    recs = check_ntt(device, 20, 67, rng, ek=22, path=proof, plain_cols=4)
+    n = 1 << 20
+    mul, add = ("halo2_zkcert_tpu/ops/pallas_limbs.py:435",
+                "halo2_zkcert_tpu/ops/pallas_limbs.py:441")
+    x = random_canonical(rng, 23 * n, device, FR.modulus).reshape(23, n, 8)
+    x[0, :3] = x[0, 3:6]                   # no zero in the product rows
+    row = x.reshape(1, 23 * n, 8)
+    recs += _exact_records("halo2_zkcert_tpu_torch/csrc/field_scan.cu", (
+        (f"field_scan.mul[23x{n}]", "field_scan", mul,
+         lambda: frops.field_scan(x, "mul"),
+         lambda: frops.field_scan_plain(x, "mul"), 64 * 23 * n,
+         23 * (n - 1)),
+        (f"field_scan.mul.reverse[1x{23 * n}]", "field_scan", mul,
+         lambda: frops.field_scan(row, "mul", reverse=True),
+         lambda: frops.field_scan_plain(row, "mul", reverse=True),
+         64 * 23 * n, 23 * n - 1),
+        (f"field_row_sum[16x{n}]", "field_row_sum", add,
+         lambda: frops.field_row_sum(x[:16]),
+         lambda: frops.tree_sum_batched_plain(x[:16]), 32 * 16 * (n + 1),
+         0),
+    ), proof)
+    del x, row
+    torch.cuda.empty_cache()
+
+    # K6 as the commitments launch it: one 2^21-pair chunk in rows of 32
+    # (432 launches a proof), and four chunks of 65 548 rows of 64
+    for B, R, C in ((1, 1 << 16, 32), (4, 65548, 64)):
+        xy = sample_affine(device, B * R * C, rng).reshape(B * R, C, 2, 8)
+        d = sorted_digits(rng, B, R, C, device)
+        name = f"scan_madd.digits[{B * R}x{C}]"
+        err, plain_ms = _sliced(
+            name, lambda: msm_fb.scan_madd(xy, d),
+            lambda r0, r1: msm_fb.scan_madd_plain(xy[r0:r1]), B * R,
+            1 << 15, msm_fb.scan_madd_defined(d))
+        rec = _record(name, "halo2_zkcert_tpu_torch/csrc/scan_madd.cu",
+                      "halo2_zkcert_tpu/ops/pallas_limbs.py:533", err,
+                      kernel_ms(lambda: msm_fb.scan_madd(xy, d), 10),
+                      plain_ms, 5 * 32 * B * R * C,
+                      11 * OPS_PER_MUL * B * R * C, "scan_madd")
+        recs.append(dict(rec, path=proof))
+        del xy, d
+        torch.cuda.empty_cache()
+
+    table = kzg.g1_window_table(device)
+    m = 2 * n
+    s = random_canonical(rng, m, device, FR.modulus)
+    s[5, :3] = 0                                # zero bytes among the others
+    nonzero = int((s.view(torch.uint8) != 0).sum())
+    name = f"point_fixed_mul[{m}]"
+    err, plain_ms = _sliced(name, lambda: curve.fixed_mul(s, table),
+                            lambda r0, r1: curve.fixed_mul_plain(s[r0:r1],
+                                                                 table),
+                            m, 1 << 18)
+    rec = _record(name, "halo2_zkcert_tpu_torch/csrc/point_chain.cu",
+                  "halo2_zkcert_tpu/ops/pallas_limbs.py:393", err,
+                  kernel_ms(lambda: curve.fixed_mul(s, table), 3), plain_ms,
+                  table.numel() * 4 + (32 + 96) * m,
+                  11 * OPS_PER_MUL * nonzero, "point_fixed_mul")
+    recs.append(dict(rec, path=setup))
+    del s
+    torch.cuda.empty_cache()
+
+    vk = read_vk(os.path.join(REPO, "build", "x509_agg.pk.vk"))
+    recs.append(check_quotient(device, vk.cs, vk.k, rng,
+                               "quotient_forest[x509_agg tape]", proof,
+                               plain_rows=1 << 18))
+    torch.cuda.empty_cache()
+    return recs
+
+
 # ---------------------------------------------------------------------------
 # phases 3 and 4: SRS + key commitments, then the proof
 # ---------------------------------------------------------------------------
 
-class forced_msm:
-    """Force the commitment MSM for the block: "1" fixed base, "0" variable
-    base (the H2T_FB_MSM knob of plonk/kzg.py)."""
+class environ_set:
+    """Set an environment variable for the block: H2T_FB_MSM "1" forces
+    the fixed-base commitment MSM, "0" the variable base (plonk/kzg.py);
+    PARAMS_DIR at a directory that does not exist keeps window tables off
+    the disk."""
 
-    def __init__(self, mode: str):
-        self.mode = mode
+    def __init__(self, name: str, value: str):
+        self.name, self.value = name, value
 
     def __enter__(self):
-        self.saved = os.environ.get("H2T_FB_MSM")
-        os.environ["H2T_FB_MSM"] = self.mode
+        self.saved = os.environ.get(self.name)
+        os.environ[self.name] = self.value
 
     def __exit__(self, *exc):
         if self.saved is None:
-            del os.environ["H2T_FB_MSM"]
+            del os.environ[self.name]
         else:
-            os.environ["H2T_FB_MSM"] = self.saved
+            os.environ[self.name] = self.saved
 
 
 def check_srs(device, params_dir: str):
@@ -813,7 +975,7 @@ def check_srs(device, params_dir: str):
     log(f"[shapes] table_build: {json.dumps(rec.shapes, sort_keys=True)}")
     circuit, pk, sig, digest = load_rsa_link(device)
     for label, mode in (("variable base", "0"), ("fixed base", "1")):
-        with forced_msm(mode):
+        with environ_set("H2T_FB_MSM", mode):
             t0 = time.perf_counter()
             fixed = kzg.commit_many_lagrange(params, pk.fixed_lagrange)
             sigma = kzg.commit_many_lagrange(params, pk.sigma_lagrange)
@@ -1288,6 +1450,204 @@ def sha256_gate_cli(device, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the X.509 aggregation at k=20
+# ---------------------------------------------------------------------------
+
+def x509_agg(device, card: str) -> dict:
+    """The reference CLI's `gen-x509-agg-proof` (k=20, lanes 8, na 8, nl 1,
+    fixed-vk mode, Poseidon transcript) over the four committed inner
+    snarks, through the calls the CLI makes.  First the circuit as the JAX
+    package records it (`keep_identity_terms=True`): its record pass, the
+    k=20 SRS and both window tables, `sdk.gen_pk` (the vk held field for
+    field to build/x509_agg.pk.vk), both phases' advice columns held to
+    tests/data/aggregation_reference.npz at its tau, MockProver on that
+    pass satisfied, and its accumulator failing the deferred pairing (the
+    identity commitments of the SHA-256 vks, circuits/agg_loader.py).  Then the port's circuit: record pass,
+    `sdk.gen_pk` (its constraint system that of build/x509_agg.pk.vk),
+    MockProver on the card, `sdk.gen_snark` with the default blinding seed
+    (its second record pass at the transcript's tau), `verify_aggregated`
+    on the proof and on a copy with one byte flipped.  Each step's wall
+    seconds and peak device memory; the proof's stages and blake2b."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "data"))
+    import make_aggregation_reference as ref
+    from halo2_zkcert_tpu_torch import sdk
+    from halo2_zkcert_tpu_torch.circuits.aggregation import (
+        InnerSnark, decode_accumulator, verify_aggregated)
+    from halo2_zkcert_tpu_torch.circuits.x509_agg import \
+        X509VerifierAggregationCircuit
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import prover, run_mock, setup
+    from halo2_zkcert_tpu_torch.plonk.assignment import BlindingRng
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_to_dict
+    from halo2_zkcert_tpu_torch.plonk.mock import mock_challenges
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    launches, steps = {}, {}
+    torch.cuda.init()
+
+    def step(label, path, fn):
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        with recorded_shapes() as rec:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            steps[label] = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(device) / 1e9
+        if path:
+            launches[path] = dict(kernels.launches)
+            log(f"[shapes] {path}: {json.dumps(rec.shapes, sort_keys=True)}")
+        log(f"[x509_agg] {label}: {steps[label]:.3f} s, device memory at "
+            f"its peak {peak:.2f} GB ({card})")
+        return out
+
+    def record(label, keep):
+        circ = step(f"{label}: circuit (record pass on the host)", None,
+                    lambda: X509VerifierAggregationCircuit(
+                        inner, k=ref.K_X509, lanes=ref.LANES_X509,
+                        na=ref.NA_X509, keep_identity_terms=keep))
+        cs, rep = circ.data.cs, circ.rows_report()
+        log(f"[x509_agg] {label}: record "
+            f"{circ.composed.pass_seconds[0][0]:.3f} s, packing "
+            f"{circ.composed.pass_seconds[0][1]:.3f} s: "
+            f"{rep['builder_cells']} builder cells, "
+            f"{len(circ.data.copies)} copies, tape rows "
+            f"{min(rep['tape_rows'])}-{max(rep['tape_rows'])} a lane of "
+            f"{rep['usable']}; {cs.num_advice} advice, {cs.num_fixed} fixed, "
+            f"{cs.num_instance} instance, {len(cs.permutation_columns)} "
+            f"permutation columns, {len(cs.lookups)} lookups")
+        return circ
+
+    def pairing(instances) -> bool:
+        lhs, rhs = decode_accumulator(instances)
+        return rc.pairing_check([
+            (lhs, params.s_g2),
+            (rc.g1_to_affine(rc.g1_neg(rc.g1_from_affine(rhs))), params.g2)])
+
+    def srs():
+        params = setup(ref.K_X509, device=device)
+        # built on the card every run: 2^20 points, 1.07 GB a basis
+        with environ_set("PARAMS_DIR", os.path.join(REPO, "no-such-dir")):
+            params.fixed_base(lagrange=True)
+            params.fixed_base(lagrange=False)
+        return params
+
+    inner = []
+    for stem in ref.X509_STEMS:
+        s = sdk.Snark.read(os.path.join(REPO, "build", f"{stem}.proof"))
+        inner.append(InnerSnark(vk=s.vk, instances=s.instances,
+                                proof=s.proof))
+    with open(os.path.join(REPO, "build", "x509_agg.pk.vk")) as f:
+        sidecar = json.load(f)
+    keys = ("k", "num_instance", "accumulator_indices", "cs",
+            "fixed_commitments", "permutation_commitments")
+
+    # the JAX package's circuit, held to build/x509_agg.pk.vk and to the
+    # JAX package's columns
+    jcirc = record("JAX package's circuit", True)
+    params = step("srs and both window tables", "x509_agg_setup", srs)
+    jpk = step("JAX package's circuit: keygen (sdk.gen_pk)", None,
+               lambda: sdk.gen_pk(params, jcirc.data))
+    got = json.loads(json.dumps(vk_to_dict(jpk.vk)))
+    same = {key: got[key] == sidecar[key] for key in keys}
+    same["cache_digest"] = (jcirc.data.cache_digest_bytes().hex()
+                            == sidecar["cache_digest"])
+    log(f"[x509_agg] JAX package's circuit: vk with "
+        f"{len(got['fixed_commitments'])} fixed and "
+        f"{len(got['permutation_commitments'])} permutation commitments; "
+        f"equal to build/x509_agg.pk.vk: {json.dumps(same, sort_keys=True)}")
+    if not all(same.values()):
+        raise AssertionError(f"x509_agg: vk differs from "
+                             f"build/x509_agg.pk.vk: {same}")
+    del jpk
+    want = ref.load_record("x509")
+    jfn, jinst = jcirc.witness(device)
+    tau = int(want["tau"])
+    assert tau == mock_challenges(jcirc.data.cs)[0], "the fixture's tau"
+
+    def digests(phase, ch):
+        return {str(i): ref.words_digest(v.cpu())
+                for i, v in sorted(jfn(phase, ch).items())}
+
+    cols = step("JAX package's circuit: both phases' columns at the "
+                "fixture's tau", None,
+                lambda: (digests(0, {}), digests(1, {0: tau})))
+    same = {"phase0": cols[0] == want["phase0"],
+            "phase1": cols[1] == want["phase1"],
+            "instances": [[str(v) for v in c] for c in jinst]
+            == want["instances"]}
+    fails_pairing = not pairing(jinst)
+    log(f"[x509_agg] JAX package's circuit: {len(cols[0])} phase-0 and "
+        f"{len(cols[1])} phase-1 columns, instances: equal to the JAX "
+        f"package's (tests/data/aggregation_reference.npz): "
+        f"{json.dumps(same, sort_keys=True)}; its accumulator fails the "
+        f"deferred pairing: {fails_pairing}")
+    if not (all(same.values()) and fails_pairing):
+        raise AssertionError(f"x509_agg: the JAX package's circuit: {same}, "
+                             f"accumulator fails the pairing: "
+                             f"{fails_pairing}")
+    fails = step("JAX package's circuit: run_mock (on that pass)", None,
+                 lambda: run_mock(jcirc.data, jfn, jinst,
+                                  raise_on_failure=False))
+    log(f"[mock] x509_agg, the JAX package's circuit: {fails[:5]}")
+    if fails:
+        raise AssertionError(f"x509_agg: MockProver on the JAX package's "
+                             f"circuit: {fails[:5]}")
+    del jcirc, jfn
+    torch.cuda.empty_cache()
+
+    # the port's circuit: keygen, MockProver, proof, verify_aggregated
+    circ = record("port's circuit", False)
+    data = circ.data
+    pk = step("keygen (sdk.gen_pk)", "x509_agg_keygen",
+              lambda: sdk.gen_pk(params, data))
+    got = json.loads(json.dumps(vk_to_dict(pk.vk)))
+    same = {key: got[key] == sidecar[key] for key in keys[:4]}
+    differ = {key: sum(a != b for a, b in zip(got[key], sidecar[key]))
+              for key in keys[4:]}
+    log(f"[x509_agg] port's circuit: vk equal to build/x509_agg.pk.vk in "
+        f"{json.dumps(same, sort_keys=True)}; commitments that differ: "
+        f"{json.dumps(differ, sort_keys=True)}")
+    if not all(same.values()):
+        raise AssertionError(f"x509_agg: constraint system differs from "
+                             f"build/x509_agg.pk.vk's: {same}")
+    witness_fn, instances = circ.witness(device)
+    fails = step("run_mock (its phase-1 pass and the check on the card)",
+                 "x509_agg_mock",
+                 lambda: run_mock(data, witness_fn, instances,
+                                  raise_on_failure=False))
+    log(f"[mock] x509_agg: {fails[:5]}")
+    if fails:
+        raise AssertionError(f"x509_agg: MockProver: {fails[:5]}")
+    snark = step("proof (sdk.gen_snark: record pass, proof, verify_proof)",
+                 "x509_agg_proof",
+                 lambda: sdk.gen_snark(params, pk, witness_fn, instances,
+                                       rng=BlindingRng()))
+    proof = snark.proof
+    log(f"[prove] x509_agg: record {circ.composed.pass_seconds[-1][0]:.3f} "
+        f"s, packing {circ.composed.pass_seconds[-1][1]:.3f} s; stages "
+        f"{json.dumps(prover.LAST_STAGE_TIMES)}; {len(proof)} bytes, "
+        f"blake2b {rc.blake2b(proof, 32).hex()}")
+    ok = step("verify_aggregated", None, lambda: verify_aggregated(
+        params, pk.vk, instances, proof, PoseidonTranscript))
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = not verify_aggregated(params, pk.vk, instances,
+                                         bytes(bad), PoseidonTranscript)
+    except (AssertionError, ValueError):
+        rejected = True                           # an undecodable point
+    (lx, ly), (rx, ry) = decode_accumulator(instances)
+    log(f"[verify] x509_agg: verify_aggregated accepts the proof: {ok}; "
+        f"rejects a flipped byte: {rejected}; accumulator lhs "
+        f"({lx:#x}, {ly:#x}), rhs ({rx:#x}, {ry:#x})")
+    if not (ok and rejected):
+        raise AssertionError("x509_agg: verify_aggregated check failed")
+    log(f"[x509_agg] steps (s, {card}): {json.dumps(steps)}")
+    return launches
+
+
 def check_launches(launches: dict) -> None:
     """The launch counts each driven path must keep (module docstring)."""
     fb = launches["fixed_base_proof"]
@@ -1314,8 +1674,10 @@ def check_launches(launches: dict) -> None:
                                              "sha256_gate_short",
                                              "sha256_gate_cli")]
     cli = launches["sha256_gate_cli_proof"]
+    agg, agg_key = launches["x509_agg_proof"], launches["x509_agg_keygen"]
+    agg_setup = launches["x509_agg_setup"]
     mocks = [launches[f"{p}_mock"] for p in ("builder_sample",
-                                             "sha256_gate_cli")]
+                                             "sha256_gate_cli", "x509_agg")]
     rules = (
         ("each gate-level proof: one quotient_forest, no point_double",
          all(p.get("quotient_forest", 0) == 1 and not p.get("point_double", 0)
@@ -1323,6 +1685,25 @@ def check_launches(launches: dict) -> None:
         ("the k=19 gate-level proof: ntt, scan_madd, field_scan",
          cli.get("ntt", 0) and cli.get("scan_madd", 0)
          and cli.get("field_scan", 0)),
+        ("the k=20 aggregation proof: one quotient_forest, ntt, scan_madd, "
+         "field_scan, field_row_sum, point_scan, point_row_sum, no chain "
+         "kernel",
+         agg.get("quotient_forest", 0) == 1 and agg.get("ntt", 0)
+         and agg.get("scan_madd", 0) and agg.get("field_scan", 0)
+         and agg.get("field_row_sum", 0) and agg.get("point_scan", 0)
+         and agg.get("point_row_sum", 0)
+         and not any(agg.get(k, 0) for k in chains)),
+        ("the k=20 aggregation keygen: field_binop.mul (sigma), ntt, "
+         "scan_madd, no chain kernel",
+         agg_key.get("field_binop.mul", 0) and agg_key.get("ntt", 0)
+         and agg_key.get("scan_madd", 0)
+         and not any(agg_key.get(k, 0) for k in chains)),
+        ("the k=20 SRS and tables: point_fixed_mul, 16 point_windows "
+         "(2^17-point slices of both bases; one more where G's table is "
+         "not yet cached), no point_double",
+         agg_setup.get("point_fixed_mul", 0)
+         and agg_setup.get("point_windows", 0) in (16, 17)
+         and not agg_setup.get("point_double", 0)),
         ("MockProver on the card: its gates through field_binop",
          all(m.get("field_binop.mul", 0) and m.get("field_binop.add", 0)
              for m in mocks)),
@@ -1412,7 +1793,7 @@ def main() -> int:
     assert kzg.commit_path(params) == "fixed_base", "default commit path"
     launches["fixed_base_proof"] = prove(device, "fixed base", *link,
                                          warmup=True)
-    with forced_msm("0"):
+    with environ_set("H2T_FB_MSM", "0"):
         launches["variable_base_proof"] = prove(device, "variable base",
                                                 *link, warmup=False)
     launches["keygen_rsa"] = check_keygen_rsa(device, params, circuit, card)
@@ -1445,6 +1826,12 @@ def main() -> int:
     # after the path, so that its transforms' tables are built on it
     torch.cuda.empty_cache()
     recs += check_gate_shapes(device, rng)
+    # the k=20 aggregation, then the kernels at its shapes
+    del gate_cs
+    torch.cuda.empty_cache()
+    launches.update(x509_agg(device, card))
+    torch.cuda.empty_cache()
+    recs += check_agg_shapes(device, rng)
     for r in recs[recs.index(rec):]:
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms "
             f"({r['issued_ms']:.4f} as issued from Python, plain "
@@ -1459,7 +1846,8 @@ def main() -> int:
              "sha256_gate_setup", "sha256_gate_short_keygen",
              "sha256_gate_short_proof", "sha256_gate_cli_setup",
              "sha256_gate_cli_keygen", "sha256_gate_cli_mock",
-             "sha256_gate_cli_proof")
+             "sha256_gate_cli_proof", "x509_agg_setup", "x509_agg_keygen",
+             "x509_agg_mock", "x509_agg_proof")
     for path in paths:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")

@@ -90,7 +90,14 @@ def from_ints(F: Field, xs, device) -> torch.Tensor:
     (..., 8) canonical tensor, reduced mod p.  Values in [0, 2^63) and in
     (p - 2^63, p), which are most cells of a gate-level circuit (bits,
     words, small negatives), are converted in numpy; only the others go
-    through `int.to_bytes` one by one."""
+    through `int.to_bytes` one by one.  A numpy array of nonnegative
+    machine integers is converted without Python ints."""
+    if isinstance(xs, np.ndarray) and xs.dtype.kind in "iu" and (
+            xs.dtype.kind == "u" or not (xs < 0).any()):
+        out = np.zeros(xs.shape + (8,), dtype=np.uint32)
+        low = xs.astype(np.uint64)
+        out[..., 0], out[..., 1] = low, low >> np.uint64(32)
+        return torch.from_numpy(out.view(np.int32)).to(device)
     a = np.asarray(xs if isinstance(xs, np.ndarray) else list(xs),
                    dtype=object)
     shape = a.shape

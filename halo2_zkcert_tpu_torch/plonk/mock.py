@@ -115,8 +115,8 @@ def run_mock(data: CircuitData, advice, instances: list,
         ins = np.stack([eval_rows(p[0], usable) for p in lk.pairs], axis=1)
         tbs = np.stack([eval_rows(p[1], usable) for p in lk.pairs], axis=1)
         width = ins.shape[1] * 32
-        table = set(tbs.tobytes()[i:i + width]
-                    for i in range(0, usable * width, width))
+        raw_t = tbs.tobytes()
+        table = {raw_t[i:i + width] for i in range(0, usable * width, width)}
         raw = ins.tobytes()
         for r in range(usable):
             if raw[r * width:(r + 1) * width] not in table:

@@ -58,7 +58,7 @@ def finv(a: int, m: int) -> int:
     """Modular inverse (0 maps to 0, matching ff's `invert().unwrap_or(0)` uses)."""
     if a % m == 0:
         return 0
-    return pow(a, m - 2, m)
+    return pow(a, -1, m)
 
 
 def fr_root_of_unity(k: int) -> int:

@@ -526,3 +526,76 @@ def test_sha256_gate_short_on_the_card(monkeypatch):
     assert run_mock(circ.data, circ.advice, circ.instances) == []
     _gate_level_proof(dev, circ.data, circ.advice, circ.instances,
                       "sha256_gate_reference.npz")
+
+
+def _agg_on_the_card(monkeypatch, inner: str, universal: bool):
+    """The k=19 aggregation circuit over a toy snark of
+    tests/data/aggregation_reference.npz, its key made on the card."""
+    import json
+    import os
+    from halo2_zkcert_tpu_torch import sdk
+    from halo2_zkcert_tpu_torch.circuits.aggregation import (
+        AggregationCircuit, InnerSnark)
+    from halo2_zkcert_tpu_torch.plonk import setup
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_from_dict
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(os.path.join(root, "tests", "data"))
+    monkeypatch.setenv("PARAMS_DIR", os.path.join(root, "no-such-dir"))
+    import make_aggregation_reference as ref
+    with np.load(ref.OUT) as z:
+        snark = InnerSnark(
+            vk=vk_from_dict(json.loads(z[f"{inner}_vk_json"].tobytes())),
+            instances=json.loads(z[f"{inner}_instances_json"].tobytes()),
+            proof=z[f"{inner}_proof"].tobytes())
+    circ = AggregationCircuit([snark], k=ref.K_AGG, lanes=ref.LANES_AGG,
+                              na=ref.NA_AGG, nl=1, universal=universal)
+    params = setup(ref.K_AGG, device=dev)
+    return dev, snark, circ, params, sdk.gen_pk(params, circ.data)
+
+
+def test_aggregation_on_the_card(monkeypatch):
+    """Fixed-vk aggregation of the toy snark at k=19 on the card: keygen,
+    MockProver satisfied, `sdk.gen_snark`, `verify_aggregated` true, and
+    false for a proof with one byte flipped."""
+    from halo2_zkcert_tpu_torch import sdk
+    from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
+    from halo2_zkcert_tpu_torch.plonk import run_mock
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    dev, _, circ, params, pk = _agg_on_the_card(monkeypatch, "toy", False)
+    fn, inst = circ.witness(dev)
+    kernels.reset_launches()
+    assert run_mock(circ.data, fn, inst) == []
+    assert kernels.launches["field_binop.mul"]
+    kernels.reset_launches()
+    snark = sdk.gen_snark(params, pk, fn, inst)
+    assert kernels.launches["quotient_forest"] == 1
+    assert verify_aggregated(params, pk.vk, inst, snark.proof,
+                             PoseidonTranscript)
+    bad = bytearray(snark.proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        ok = verify_aggregated(params, pk.vk, inst, bytes(bad),
+                               PoseidonTranscript)
+    except ValueError:
+        ok = False
+    assert not ok
+
+
+def test_universal_aggregation_on_the_card(monkeypatch):
+    """Universal mode: one key (made from the c = 5 snark's circuit) proves
+    the aggregation of the c = 7 snark too; `verify_aggregated` holds each
+    proof to its own inner vk and refuses the other's."""
+    from halo2_zkcert_tpu_torch import sdk
+    from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    dev, s5, c5, params, pk = _agg_on_the_card(monkeypatch, "c5", True)
+    _, s7, c7, _, _ = _agg_on_the_card(monkeypatch, "c7", True)
+    assert c7.data.cache_digest_bytes() == c5.data.cache_digest_bytes()
+    for circ, own, other in ((c5, s5, s7), (c7, s7, s5)):
+        fn, inst = circ.witness(dev)
+        snark = sdk.gen_snark(params, pk, fn, inst)
+        assert verify_aggregated(params, pk.vk, inst, snark.proof,
+                                 PoseidonTranscript, inner_vks=[own.vk])
+        assert not verify_aggregated(params, pk.vk, inst, snark.proof,
+                                     PoseidonTranscript, inner_vks=[other.vk])
