@@ -71,9 +71,22 @@ Phases, each printing its own line:
      2^25 pairs with their digits, and the k=19 SRS's 2^20 fixed-base
      products (the window tables are built in 2^17-point slices, phase 2's
      shape);
+ 12. (run before phase 10, whose inner snarks it writes) the reference
+     CLI's chain through `cli.main` on the card ("cli"), its build and
+     params directories in a temporary directory under build/, the
+     certificates from testdata/: gen-params --k 17; gen-rsa-keys and
+     prove-rsa for both RSA links (example_cert_3 by example_cert_2, and
+     example_cert_2 by the root example_cert_1, a 4096-bit key); gen-zkevm-
+     sha256-keys and prove-zkevm-sha256 for example_cert_3 and
+     example_cert_2 (k=12).  Each snark file must equal
+     build/{rsa_1,rsa_2,sha256_1,sha256_2}.proof in its proof bytes,
+     instances and vk, and each key's vk build/<stem>.pk.vk in its
+     commitments, constraint system and cache digest (where that sidecar
+     has one); each subcommand's
+     wall seconds, each key file's size and write seconds;
  10. the X.509 aggregation of the reference CLI's `gen-x509-agg-proof`
-     ("x509_agg"): X509VerifierAggregationCircuit over the four committed
-     inner snarks at k=20, lanes 8, na 8, nl 1, fixed-vk mode.  First the
+     ("x509_agg"): X509VerifierAggregationCircuit over the four inner
+     snarks phase 12 wrote at k=20, lanes 8, na 8, nl 1, fixed-vk mode.  First the
      circuit as the JAX package records it (`keep_identity_terms=True`):
      its record pass, the k=20 SRS and both window tables, `sdk.gen_pk`
      (the vk must equal build/x509_agg.pk.vk field for field: k, instance
@@ -94,7 +107,26 @@ Phases, each printing its own line:
      2^20, K6 at the proof's launch shapes with digits (65 536 rows x 32,
      262 192 x 64), the k=20 SRS's 2^21 fixed-base products, and K4 on its
      tape over 2^22 rows (157 leaves; the plain version on the first 2^18
-     rows);
+     rows).  Before those kernels, right after `verify_aggregated`, the
+     CLI's `gen-x509-agg-evm-proof` after its key ("x509_agg_evm",
+     `cli.aggregation_step` on the port's k=20 key): the
+     Solidity verifier (its length and blake2b), the Keccak proof (its
+     witness a fresh phase-1 pass at the Keccak transcript's tau; stages,
+     bytes, blake2b, peak device memory), `evm_verify`; then
+     `verify_aggregated` with the Keccak transcript must be true, the EVM
+     must accept (its gas, the deployed runtime's size, the interpreter's
+     seconds), `execute_ir` must agree, and the EVM must reject a flipped
+     byte, a changed instance and a proof cut short by 32 bytes.  The IR,
+     bytecode and Solidity of the toy vk and of
+     build/{rsa_1,rsa_2,sha256_1,sha256_2,x509_agg}.pk.vk must equal the
+     JAX package's (their digests in tests/data/evm_reference.json), and
+     the toy fixture's Keccak proof must pass the port's EVM with the JAX
+     EVM's gas.  After the kernels at the aggregation's shapes, the toy
+     with an accumulator ("acc_toy", tests/data/make_evm_reference.py: the
+     toy circuit at k=6, its 8 instance rows the limbs of an accumulator
+     pair) keyed and proved with `sdk.gen_evm_proof` for a good pair
+     (P, tau P) and a bad one (P, (tau + 1) P): `verify_proof` accepts
+     both, the EVM and `execute_ir` only the good one;
  11. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
@@ -114,7 +146,14 @@ Phases, each printing its own line:
      the scans of field elements and of points and K6 and no chain kernel,
      its keygen K1's product, ntt and scan_madd and no chain kernel, its
      SRS and tables point_fixed_mul and 16 point_windows (17 where G's
-     table is built on the way).  The [shapes] lines give the shapes the
+     table is built on the way); its Keccak proof (the EVM flow) what its
+     Poseidon proof launches; the CLI's 4096-bit RSA proof what the
+     fixed-base proof launches (and at most 8 more ntt: the first proof
+     with a key puts the key's columns on the extended domain) and no
+     chain kernel, its first RSA proof
+     the same with at most one point_windows (the monomial basis's table,
+     built at its first use), each CLI SHA-256 proof quotient_forest once,
+     scan_madd and ntt; each accumulator toy proof quotient_forest once.  The [shapes] lines give the shapes the
      point kernels, the transforms and the field scans were called with
      on each path.
 
@@ -130,6 +169,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1454,10 +1494,11 @@ def sha256_gate_cli(device, card: str) -> dict:
 # phase 10: the X.509 aggregation at k=20
 # ---------------------------------------------------------------------------
 
-def x509_agg(device, card: str) -> dict:
+def x509_agg(device, card: str, snark_dir: str, work: str) -> dict:
     """The reference CLI's `gen-x509-agg-proof` (k=20, lanes 8, na 8, nl 1,
-    fixed-vk mode, Poseidon transcript) over the four committed inner
-    snarks, through the calls the CLI makes.  First the circuit as the JAX
+    fixed-vk mode, Poseidon transcript) over the four inner snarks in
+    `snark_dir` (the CLI chain's, phase 12, which equal the committed
+    build/*.proof), through the calls the CLI makes.  First the circuit as the JAX
     package records it (`keep_identity_terms=True`): its record pass, the
     k=20 SRS and both window tables, `sdk.gen_pk` (the vk held field for
     field to build/x509_agg.pk.vk), both phases' advice columns held to
@@ -1468,7 +1509,8 @@ def x509_agg(device, card: str) -> dict:
     MockProver on the card, `sdk.gen_snark` with the default blinding seed
     (its second record pass at the transcript's tau), `verify_aggregated`
     on the proof and on a copy with one byte flipped.  Each step's wall
-    seconds and peak device memory; the proof's stages and blake2b."""
+    seconds and peak device memory; the proof's stages and blake2b.  Then
+    the EVM flow on the same key (`x509_agg_evm`), its files in `work`."""
     sys.path.insert(0, os.path.join(REPO, "tests", "data"))
     import make_aggregation_reference as ref
     from halo2_zkcert_tpu_torch import sdk
@@ -1535,7 +1577,7 @@ def x509_agg(device, card: str) -> dict:
 
     inner = []
     for stem in ref.X509_STEMS:
-        s = sdk.Snark.read(os.path.join(REPO, "build", f"{stem}.proof"))
+        s = sdk.Snark.read(os.path.join(snark_dir, f"{stem}.proof"))
         inner.append(InnerSnark(vk=s.vk, instances=s.instances,
                                 proof=s.proof))
     with open(os.path.join(REPO, "build", "x509_agg.pk.vk")) as f:
@@ -1645,6 +1687,308 @@ def x509_agg(device, card: str) -> dict:
     if not (ok and rejected):
         raise AssertionError("x509_agg: verify_aggregated check failed")
     log(f"[x509_agg] steps (s, {card}): {json.dumps(steps)}")
+    del snark, witness_fn
+    torch.cuda.empty_cache()
+    launches.update(x509_agg_evm(device, card, params, pk, circ, work))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10, continued: the aggregation's EVM flow; phase 12: the reference
+# CLI's chain; the accumulator toy
+# ---------------------------------------------------------------------------
+
+def _evm_reference():
+    """tests/data/make_evm_reference.py (module) and the JAX package's
+    EVM artifacts it wrote (tests/data/evm_reference.json)."""
+    sys.path.insert(0, os.path.join(REPO, "tests", "data"))
+    import make_evm_reference as ref
+    with open(ref.OUT) as f:
+        return ref, json.load(f)
+
+
+def evm_artifacts(params, card: str) -> None:
+    """The IR, bytecode and Solidity of the toy vk and of
+    build/{rsa_1,rsa_2,sha256_1,sha256_2,x509_agg}.pk.vk, emitted by the
+    port with `params`' G2 points, held to the JAX package's digests; the
+    toy fixture's Keccak proof accepted by the port's EVM with the JAX
+    EVM's gas."""
+    from halo2_zkcert_tpu_torch import evm
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_from_dict
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    ref, want = _evm_reference()
+    g2 = [[str(v) for v in c] for c in params.g2]
+    s_g2 = [[str(v) for v in c] for c in params.s_g2]
+    if (g2, s_g2) != (want["g2"], want["s_g2"]):
+        raise AssertionError("evm: the SRS's G2 points differ from the JAX "
+                             "package's")
+    vks = {name: vk_from_dict(d) for name, d in ref.vk_dicts().items()}
+    for name, vk in vks.items():
+        t0 = time.perf_counter()
+        got = ref.artifact_record(evm, rc, params, vk, name)
+        dt = time.perf_counter() - t0
+        same = got == want["vks"][name]
+        log(f"[evm] {name}: {got['num_ops']} IR ops, proof "
+            f"{got['proof_len']} bytes, runtime {got['runtime_len']} bytes, "
+            f"Solidity {got['sol_len']} chars, emitted in {dt:.3f} s; IR, "
+            f"bytecode and Solidity {'equal to' if same else 'DIFFERENT FROM'}"
+            f" the JAX package's (blake2b deploy {got['deploy_blake2b']}, "
+            f"sol {got['sol_blake2b']})")
+        if not same:
+            raise AssertionError(f"evm: {name}'s artifacts differ from the "
+                                 f"JAX package's: {got} {want['vks'][name]}")
+    instances, proof = ref.toy_keccak()
+    t0 = time.perf_counter()
+    got = evm.evm_verify_bytecode(params, vks["toy"], instances, proof)
+    dt = time.perf_counter() - t0
+    log(f"[evm] toy Keccak proof in the port's EVM: accepted {got[0]}, gas "
+        f"{got[1]} (the JAX EVM's: {want['toy_keccak']['gas']}), "
+        f"{dt:.3f} s on the host ({card})")
+    if list(got) != [True, want["toy_keccak"]["gas"]]:
+        raise AssertionError(f"evm: the toy Keccak proof: {got}")
+
+
+def x509_agg_evm(device, card: str, params, pk, circ, work: str) -> dict:
+    """The reference CLI's `gen-x509-agg-evm-proof` after its key, through
+    the CLI's own step function (`cli.aggregation_step`) on phase 10's k=20
+    key: the Solidity verifier, the Keccak proof (its witness a fresh
+    phase-1 pass at the Keccak transcript's tau), `evm_verify`.  Then
+    `verify_aggregated` with the Keccak transcript, the gas and the
+    interpreter's seconds, `execute_ir`'s verdict, and the EVM's on a
+    flipped byte, a changed instance and a proof cut short by 32 bytes;
+    and the artifacts of the JAX package's vks (`evm_artifacts`)."""
+    from halo2_zkcert_tpu_torch import cli, evm
+    from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import prover
+    from halo2_zkcert_tpu_torch.transcript import KeccakTranscript
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    proof_path = os.path.join(work, "x509_agg_evm.proof")
+    sol_path = os.path.join(work, "X509AggregationVerifierFinal.sol")
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats(device)
+    with recorded_shapes() as rec:
+        t0 = time.perf_counter()
+        out = cli.aggregation_step("gen-x509-agg-evm-proof", params, pk, circ,
+                                   proof_path, sol_path, device)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    launches = {"x509_agg_evm_proof": dict(kernels.launches)}
+    peak = torch.cuda.max_memory_allocated(device) / 1e9
+    log(f"[shapes] x509_agg_evm_proof: {json.dumps(rec.shapes, sort_keys=True)}")
+    instances, proof, sol = out["instances"], out["proof"], out["sol"]
+    with open(proof_path, "rb") as f:
+        on_disk = f.read() == proof
+    with open(sol_path) as f:
+        on_disk = on_disk and f.read() == sol
+    log(f"[x509_agg_evm] cli.aggregation_step: {total:.3f} s, steps (s) "
+        f"{json.dumps(out['seconds'])}, device memory at its peak "
+        f"{peak:.2f} GB ({card}); record "
+        f"{circ.composed.pass_seconds[-1][0]:.3f} s, packing "
+        f"{circ.composed.pass_seconds[-1][1]:.3f} s; proof stages "
+        f"{json.dumps(prover.LAST_STAGE_TIMES)}; {len(proof)} bytes, blake2b "
+        f"{rc.blake2b(proof, 32).hex()}; Solidity {len(sol)} chars, blake2b "
+        f"{rc.blake2b(sol.encode(), 32).hex()}; files as returned: {on_disk}")
+    rows = [len(c) for c in instances]
+    t0 = time.perf_counter()
+    agg_ok = verify_aggregated(params, pk.vk, instances, proof,
+                               KeccakTranscript)
+    t_agg = time.perf_counter() - t0
+    art = evm.gen_evm_verifier_bytecode(params, pk.vk, rows)
+    t0 = time.perf_counter()
+    evm_ok, gas = evm.evm_verify_bytecode(params, pk.vk, instances, proof)
+    t_evm = time.perf_counter() - t0
+    ops, _ = evm.build_verifier_ir(pk.vk, rows)
+    t0 = time.perf_counter()
+    ir_ok = evm.execute_ir(ops, instances, proof, params)
+    t_ir = time.perf_counter() - t0
+    tags = [op[0] for op in ops]
+    log(f"[x509_agg_evm] verify_aggregated (Keccak): {agg_ok} in "
+        f"{t_agg:.3f} s; the EVM accepts: {evm_ok}, gas {gas}, deployed "
+        f"runtime {len(art['runtime'])} bytes ({len(art['deploy'])} with "
+        f"the constructor), {art['num_ops']} IR ops ({tags.count('comb128')} "
+        f"comb128, last {tags[-1]}), interpreter {t_evm:.3f} s; execute_ir: "
+        f"{ir_ok} in {t_ir:.3f} s ({card})")
+    if not (on_disk and agg_ok and evm_ok and ir_ok
+            and tags[-1] == "final_acc"):
+        raise AssertionError("x509_agg_evm: the EVM flow's checks failed")
+    flipped = bytearray(proof)
+    flipped[len(flipped) // 2] ^= 1
+    changed = [[(instances[0][0] + 1) % rc.FR] + list(instances[0][1:])] \
+        + [list(c) for c in instances[1:]]
+    tampered = {"flipped byte": (instances, bytes(flipped)),
+                "changed instance": (changed, proof),
+                "cut short by 32 bytes": (instances, proof[:-32])}
+    verdicts = {}
+    for what, (inst, bad) in tampered.items():
+        t0 = time.perf_counter()
+        ok, gas_bad = evm.evm_verify_bytecode(params, pk.vk, inst, bad)
+        verdicts[what] = {"accepted": ok, "gas": gas_bad,
+                          "s": round(time.perf_counter() - t0, 3)}
+    log(f"[x509_agg_evm] the EVM on tampered inputs: "
+        f"{json.dumps(verdicts, sort_keys=True)}")
+    if any(v["accepted"] for v in verdicts.values()):
+        raise AssertionError(f"x509_agg_evm: a tampered input accepted: "
+                             f"{verdicts}")
+    evm_artifacts(params, card)
+    return launches
+
+
+def toy_accumulator(device, card: str) -> dict:
+    """The accumulator toy (tests/data/make_evm_reference.py `acc_toy`, k=6,
+    its 8 instance rows an accumulator pair) keyed and proved on the card
+    with `sdk.gen_evm_proof` for a good pair (P, tau P) and a bad one
+    (P, (tau + 1) P): `verify_proof` accepts both, the EVM (`evm_verify`)
+    and `execute_ir` accept the good and reject the bad, as
+    `verify_aggregated` does.  The launch counts of each proof."""
+    from halo2_zkcert_tpu_torch import evm, sdk
+    from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import keygen, setup, verify_proof
+    from halo2_zkcert_tpu_torch.transcript import KeccakTranscript
+    ref, _ = _evm_reference()
+    params = setup(ref.ACC_K, device=device)
+    launches = {}
+    for good in (True, False):
+        label = f"acc_toy_{'good' if good else 'bad'}"
+        data, advice, instances = ref.acc_toy(ref.acc_pair(good), device)
+        pk = keygen(params, data)
+        kernels.reset_launches()
+        with recorded_shapes() as rec:
+            t0 = time.perf_counter()
+            proof = sdk.gen_evm_proof(params, pk, advice, instances)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        launches[f"{label}_proof"] = dict(kernels.launches)
+        log(f"[shapes] {label}_proof: {json.dumps(rec.shapes, sort_keys=True)}")
+        verdict = {
+            "verify_proof": verify_proof(params, pk.vk, instances, proof,
+                                         KeccakTranscript),
+            "verify_aggregated": verify_aggregated(
+                params, pk.vk, instances, proof, KeccakTranscript),
+            "evm_verify": sdk.evm_verify(params, pk.vk, instances, proof),
+            "execute_ir": evm.execute_ir(
+                evm.build_verifier_ir(pk.vk, [8])[0], instances, proof,
+                params)}
+        log(f"[acc_toy] {label}: gen_evm_proof {dt:.3f} s ({card}), "
+            f"{len(proof)} bytes; {json.dumps(verdict, sort_keys=True)}")
+        want = {"verify_proof": True, "verify_aggregated": good,
+                "evm_verify": good, "execute_ir": good}
+        if verdict != want:
+            raise AssertionError(f"{label}: {verdict}, wanted {want}")
+    return launches
+
+
+# the reference CLI's chain: (stem, signed certificate, issuer) of the RSA
+# links and (stem, certificate) of the SHA-256 links
+CLI_RSA = (("rsa_1", "example_cert_3.pem", "example_cert_2.pem"),
+           ("rsa_2", "example_cert_2.pem", "example_cert_1.pem"))
+CLI_SHA = (("sha256_1", "example_cert_3.pem"),
+           ("sha256_2", "example_cert_2.pem"))
+
+
+def cli_chain(device, card: str, work: str) -> dict:
+    """Phase 12: the reference CLI's chain through `cli.main` on the card,
+    its build and params directories in `work`, the certificates from
+    testdata/: gen-params --k 17; gen-rsa-keys and prove-rsa for both RSA
+    links (the 4096-bit root's included); gen-zkevm-sha256-keys and
+    prove-zkevm-sha256 for both SHA-256 links.  Each snark file equals
+    build/<stem>.proof in its proof bytes, instances and vk, and each key's
+    vk build/<stem>.pk.vk in its commitments, constraint system and cache
+    digest (where that sidecar has one).  Each subcommand's wall seconds,
+    each key file's size and write seconds; the launch counts of each
+    subcommand."""
+    from halo2_zkcert_tpu_torch import cli, sdk
+    from halo2_zkcert_tpu_torch.cert import extract_public_key, parse_pem
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import prover
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_to_dict
+    build, params_dir = os.path.join(work, "build"), os.path.join(work, "params")
+    testdata = os.path.join(REPO, "testdata")
+    common = ["--build-dir", build, "--params-path", params_dir,
+              "--device", str(device.type)]
+    launches, seconds = {}, {}
+    write_pk = sdk.write_pk
+
+    def timed_write_pk(pk, path, cache_digest=None):
+        t0 = time.perf_counter()
+        write_pk(pk, path, cache_digest)
+        dt = time.perf_counter() - t0
+        size = sum(os.path.getsize(path + ext) for ext in (".npz", ".vk"))
+        log(f"[cli] key file {os.path.basename(path)}.npz + .vk: {size} "
+            f"bytes, written in {dt:.3f} s ({card})")
+
+    def run(label, argv, path=None):
+        kernels.reset_launches()
+        with recorded_shapes() as rec:
+            t0 = time.perf_counter()
+            cli.main(argv + common)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+        launches[path or f"cli_{label}"] = dict(kernels.launches)
+        if path:
+            log(f"[shapes] {path}: {json.dumps(rec.shapes, sort_keys=True)}")
+        log(f"[cli] {label}: {seconds[label]:.3f} s ({card})")
+
+    def held(stem):
+        """The snark file and the key's vk against the committed ones."""
+        got = sdk.Snark.read(os.path.join(build, f"{stem}.proof"))
+        ref = sdk.Snark.read(os.path.join(REPO, "build", f"{stem}.proof"))
+        with open(os.path.join(build, f"{stem}.pk.vk")) as f:
+            key = json.load(f)
+        with open(os.path.join(REPO, "build", f"{stem}.pk.vk")) as f:
+            ref_key = json.load(f)
+        same = {"proof": got.proof == ref.proof,
+                "instances": got.instances == ref.instances,
+                "vk": json.loads(json.dumps(vk_to_dict(got.vk)))
+                == json.loads(json.dumps(vk_to_dict(ref.vk)))}
+        # build/rsa_2.pk.vk is a sidecar without a cache digest (the JAX
+        # package wrote it before it kept one); tests/test_torch_rsa.py
+        # holds that circuit's digest to the JAX package's
+        same.update({f"pk.vk {key_name}": key.get(key_name)
+                     == ref_key.get(key_name)
+                     for key_name in ("fixed_commitments",
+                                      "permutation_commitments", "cs",
+                                      "cache_digest")
+                     if key_name in ref_key})
+        log(f"[cli] {stem}: {len(got.proof)}-byte proof, stages "
+            f"{json.dumps(prover.LAST_STAGE_TIMES)}; equal to build/{stem}"
+            f".proof and build/{stem}.pk.vk: {json.dumps(same, sort_keys=True)}")
+        if not all(same.values()):
+            raise AssertionError(f"cli: {stem} differs from the committed "
+                                 f"artifacts: {same}")
+
+    with environ_set("PARAMS_DIR", params_dir):
+        sdk.write_pk = timed_write_pk
+        try:
+            run("gen-params", ["gen-params", "--k", "17"])
+            for stem, signed, issuer in CLI_RSA:
+                with open(os.path.join(testdata, issuer), "rb") as f:
+                    bits = extract_public_key(parse_pem(f.read())).bit_length()
+                log(f"[cli] {stem}: {signed} signed by {issuer}, a {bits}-bit "
+                    f"RSA key")
+                certs = ["--verify-cert-path", os.path.join(testdata, signed),
+                         "--issuer-cert-path", os.path.join(testdata, issuer),
+                         "--pk-path", os.path.join(build, f"{stem}.pk")]
+                run(f"gen-rsa-keys {stem}", ["gen-rsa-keys"] + certs,
+                    f"cli_{stem}_keygen")
+                run(f"prove-rsa {stem}", ["prove-rsa"] + certs + [
+                    "--proof-path", os.path.join(build, f"{stem}.proof")],
+                    f"cli_{stem}_proof")
+                held(stem)
+            for stem, pem in CLI_SHA:
+                args = ["--cert-path", os.path.join(testdata, pem),
+                        "--pk-path", os.path.join(build, f"{stem}.pk")]
+                run(f"gen-zkevm-sha256-keys {stem}",
+                    ["gen-zkevm-sha256-keys"] + args, f"cli_{stem}_keygen")
+                run(f"prove-zkevm-sha256 {stem}", ["prove-zkevm-sha256"]
+                    + args + ["--proof-path",
+                              os.path.join(build, f"{stem}.proof")],
+                    f"cli_{stem}_proof")
+                held(stem)
+        finally:
+            sdk.write_pk = write_pk
+    log(f"[cli] subcommands (s, {card}): {json.dumps(seconds)}")
     return launches
 
 
@@ -1678,7 +2022,51 @@ def check_launches(launches: dict) -> None:
     agg_setup = launches["x509_agg_setup"]
     mocks = [launches[f"{p}_mock"] for p in ("builder_sample",
                                              "sha256_gate_cli", "x509_agg")]
+    agg_evm = launches["x509_agg_evm_proof"]
+    cli_rsa = [launches[f"cli_rsa_{i}_proof"] for i in (1, 2)]
+    cli_sha = [launches[f"cli_sha256_{i}_proof"] for i in (1, 2)]
+    acc = [launches[f"acc_toy_{w}_proof"] for w in ("good", "bad")]
+
+    def like_fixed_base(p, windows):
+        """What the fixed-base RSA proof launches, as the first proof with
+        its key (read from the key file): up to 8 more ntt launches, which
+        put the key's columns on the extended domain (plonk/prover.py
+        `_Quotient`, built once a key); `windows` point_windows launches
+        allowed (a window table built at its first use)."""
+        points = sum(p.get(k, 0) for k in ("point_add", "point_scan",
+                                           "point_row_sum"))
+        binop = sum(v for k, v in p.items() if k.startswith("field_binop."))
+        return (p.get("quotient_forest", 0) == 1 and p.get("scan_madd", 0)
+                and points < 100 and binop < 300
+                and 0 < p.get("ntt", 0) <= 16
+                and p.get("point_windows", 0) <= windows
+                and not any(p.get(k, 0) for k in chains
+                            if k != "point_windows"))
+
     rules = (
+        ("the k=20 aggregation's Keccak proof (the EVM flow): one "
+         "quotient_forest, ntt, scan_madd, field_scan, field_row_sum, "
+         "point_scan, point_row_sum, no chain kernel",
+         agg_evm.get("quotient_forest", 0) == 1 and agg_evm.get("ntt", 0)
+         and agg_evm.get("scan_madd", 0) and agg_evm.get("field_scan", 0)
+         and agg_evm.get("field_row_sum", 0) and agg_evm.get("point_scan", 0)
+         and agg_evm.get("point_row_sum", 0)
+         and not any(agg_evm.get(k, 0) for k in chains)),
+        ("the CLI's 4096-bit RSA proof (prove-rsa rsa_2): what the fixed-base "
+         "proof launches, no chain kernel (both tables read from the cache)",
+         like_fixed_base(cli_rsa[1], 0)),
+        ("the CLI's first RSA proof (prove-rsa rsa_1): what the fixed-base "
+         "proof launches, and at most one point_windows (the monomial "
+         "basis's table, built at its first use) of the chain kernels",
+         like_fixed_base(cli_rsa[0], 1)),
+        ("each CLI SHA-256 proof: one quotient_forest, scan_madd, ntt, no "
+         "point_double",
+         all(p.get("quotient_forest", 0) == 1 and p.get("scan_madd", 0)
+             and p.get("ntt", 0) and not p.get("point_double", 0)
+             for p in cli_sha)),
+        ("each accumulator toy proof: one quotient_forest, no point_double",
+         all(p.get("quotient_forest", 0) == 1 and not p.get("point_double", 0)
+             for p in acc)),
         ("each gate-level proof: one quotient_forest, no point_double",
          all(p.get("quotient_forest", 0) == 1 and not p.get("point_double", 0)
              for p in gate)),
@@ -1826,12 +2214,19 @@ def main() -> int:
     # after the path, so that its transforms' tables are built on it
     torch.cuda.empty_cache()
     recs += check_gate_shapes(device, rng)
-    # the k=20 aggregation, then the kernels at its shapes
+    # the reference CLI's chain, then the k=20 aggregation over its snark
+    # files with its EVM flow, then the kernels at the aggregation's shapes
     del gate_cs
     torch.cuda.empty_cache()
-    launches.update(x509_agg(device, card))
+    with tempfile.TemporaryDirectory(prefix="cli_chain_",
+                                     dir=os.path.join(REPO, "build")) as work:
+        launches.update(cli_chain(device, card, work))
+        torch.cuda.empty_cache()
+        launches.update(x509_agg(device, card, os.path.join(work, "build"),
+                                 work))
     torch.cuda.empty_cache()
     recs += check_agg_shapes(device, rng)
+    launches.update(toy_accumulator(device, card))
     for r in recs[recs.index(rec):]:
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms "
             f"({r['issued_ms']:.4f} as issued from Python, plain "
@@ -1846,8 +2241,12 @@ def main() -> int:
              "sha256_gate_setup", "sha256_gate_short_keygen",
              "sha256_gate_short_proof", "sha256_gate_cli_setup",
              "sha256_gate_cli_keygen", "sha256_gate_cli_mock",
-             "sha256_gate_cli_proof", "x509_agg_setup", "x509_agg_keygen",
-             "x509_agg_mock", "x509_agg_proof")
+             "sha256_gate_cli_proof", "cli_rsa_1_keygen", "cli_rsa_1_proof",
+             "cli_rsa_2_keygen", "cli_rsa_2_proof", "cli_sha256_1_keygen",
+             "cli_sha256_1_proof", "cli_sha256_2_keygen",
+             "cli_sha256_2_proof", "x509_agg_setup", "x509_agg_keygen",
+             "x509_agg_mock", "x509_agg_proof", "x509_agg_evm_proof",
+             "acc_toy_good_proof", "acc_toy_bad_proof")
     for path in paths:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")

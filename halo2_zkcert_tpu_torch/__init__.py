@@ -8,10 +8,14 @@ Package layout (the JAX package's, module for module):
   ops/        field (K1), curve (K2, K3), NTT, MSM, vector primitives
   plonk/      domain, KZG, constraint system, keys, quotient tape (K4),
               prover, SHPLONK, verifier
-  circuits/   the RSA PKCS#1 v1.5 signature circuit
+  circuits/   the RSA, SHA-256 and X.509 aggregation circuits
   transcript/ Poseidon and Keccak Fiat-Shamir transcripts (host)
-  cert/       X.509 parsing (host)
+  evm/        the EVM verifier: IR, bytecode, Solidity, an in-process EVM
+              (host)
+  cert/       X.509 parsing and the TLS chain download (host)
   utils/      the Python-int BN254 oracle (host)
+  sdk.py      key and snark files, keygen with its cache, the EVM calls
+  cli.py      the reference's 11 subcommands (`--device`, default cuda)
 
 Entry points take a `device` and default to "cuda"; the tests pass "cpu".
 """

@@ -1,7 +1,8 @@
 """X.509 certificate handling (host): the three extractions the proving
-pipeline needs."""
+pipeline needs, and the download of a server's chain."""
 from .x509 import (
     Certificate,
+    download_tls_certs_from_domain,
     extract_public_key,
     extract_tbs_and_sig,
     parse_pem,

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import base64
 import hashlib
+import os
 import re
+import socket
+import ssl
 from dataclasses import dataclass
 
 # ---------------------------------------------------------------------------
@@ -172,3 +175,42 @@ def verify_pkcs1v15_sha256(tbs: bytes, signature: int, modulus: int,
     em = pow(signature, exponent, modulus)
     expected = pkcs1v15_sha256_em(hashlib.sha256(tbs).digest(), k_bytes)
     return em == expected
+
+
+# ---------------------------------------------------------------------------
+# TLS chain download (reference helpers.rs:33-55)
+# ---------------------------------------------------------------------------
+
+def download_tls_certs_from_domain(domain: str, out_dir: str,
+                                   port: int = 443, timeout: float = 10.0):
+    """Fetch the chain a server presents and write it as cert_{i}.pem files
+    in `out_dir`, the root-most as cert_1 and the leaf as the last (the
+    reference writes cert_{3-i}.pem, leaf 3, helpers.rs:46-54).  Returns
+    the paths, leaf first.
+
+    The chain is the one the server sends: the ssl module gives no verified
+    chain, where the reference takes openssl's; for a well-formed server
+    they are the same certificates.
+    """
+    ctx = ssl.create_default_context()
+    with socket.create_connection((domain, port), timeout=timeout) as sock:
+        with ctx.wrap_socket(sock, server_hostname=domain) as tls:
+            if hasattr(tls, "get_unverified_chain"):
+                chain = tls.get_unverified_chain() or []
+                certs_der = [c.public_bytes(ssl._ssl.ENCODING_DER)
+                             if hasattr(c, "public_bytes") else c
+                             for c in chain]
+            else:
+                certs_der = [tls.getpeercert(binary_form=True)]
+    os.makedirs(out_dir, exist_ok=True)
+    paths = []
+    for i, der in enumerate(certs_der):
+        b64 = base64.encodebytes(der).replace(b"\n", b"")
+        lines = [b64[j:j + 64] for j in range(0, len(b64), 64)]
+        pem = (b"-----BEGIN CERTIFICATE-----\n" + b"\n".join(lines)
+               + b"\n-----END CERTIFICATE-----\n")
+        path = f"{out_dir}/cert_{len(certs_der) - i}.pem"
+        with open(path, "wb") as f:
+            f.write(pem)
+        paths.append(path)
+    return paths

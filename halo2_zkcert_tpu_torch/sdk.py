@@ -1,10 +1,10 @@
-"""SDK: proving and verifying key files, keygen with a key cache, and snarks.
+"""SDK: proving and verifying key files, keygen with a key cache, snarks,
+and the EVM verifier's calls.
 
-Counterpart of halo2_zkcert_tpu/sdk.py (its key and snark part).  A saved
-pk is a vk sidecar `<path>.vk` (json, with the circuit's `cache_digest`)
-and `<path>.npz` holding the four column arrays as (m, n, 33) int32 byte
-limbs, the layout the JAX package writes; each package reads the other's
-files.
+Counterpart of halo2_zkcert_tpu/sdk.py.  A saved pk is a vk sidecar
+`<path>.vk` (json, with the circuit's `cache_digest`) and `<path>.npz`
+holding the four column arrays as (m, n, 33) int32 byte limbs, the layout
+the JAX package writes; each package reads the other's files.
 """
 from __future__ import annotations
 
@@ -16,12 +16,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from . import evm
 from .plonk import create_proof, verify_proof
 from .plonk.assignment import BlindingRng, CircuitData
 from .plonk.keygen import (ProvingKey, VerifyingKey, from_reference_pk,
                            keygen, vk_from_dict, vk_to_dict)
 from .plonk.kzg import ParamsKZG
-from .transcript import PoseidonTranscript
+from .transcript import KeccakTranscript, PoseidonTranscript
 
 PK_ARRAYS = ("fixed_lagrange", "fixed_coeff", "sigma_lagrange", "sigma_coeff")
 
@@ -141,3 +142,36 @@ def verify_snark(params: ParamsKZG, snark: Snark,
                  transcript_cls=PoseidonTranscript) -> bool:
     return verify_proof(params, snark.vk, snark.instances, snark.proof,
                         transcript_cls)
+
+
+def gen_evm_proof(params: ParamsKZG, pk: ProvingKey, witness, instances,
+                  path: str | None = None,
+                  rng: BlindingRng | None = None) -> bytes:
+    """A proof with the Keccak transcript, for the EVM verifier (reference
+    `gen_evm_proof_shplonk`, cli.rs:519): verified, and written to `path`
+    when given."""
+    proof = create_proof(params, pk, witness, instances, KeccakTranscript(),
+                         rng=rng)
+    if not verify_proof(params, pk.vk, instances, proof, KeccakTranscript):
+        raise RuntimeError("gen_evm_proof: the proof does not verify")
+    if path:
+        with open(path, "wb") as f:
+            f.write(proof)
+    return proof
+
+
+def gen_evm_verifier(params: ParamsKZG, vk: VerifyingKey,
+                     num_instance_rows: list, sol_path: str | None = None,
+                     name: str = "Halo2TpuVerifier") -> str:
+    """The Solidity verifier of `vk`, written to `sol_path` when given
+    (reference `gen_evm_verifier_shplonk`, cli.rs:512-517)."""
+    return evm.gen_evm_verifier(params, vk, num_instance_rows, sol_path, name)
+
+
+def evm_verify(params: ParamsKZG, vk: VerifyingKey, instances,
+               proof: bytes) -> bool:
+    """Deploy the verifier's bytecode into the in-process EVM and call it
+    with `instances ++ proof` (reference `evm_verify` into revm,
+    cli.rs:524)."""
+    accepted, _gas = evm.evm_verify_bytecode(params, vk, instances, proof)
+    return accepted

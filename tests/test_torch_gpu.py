@@ -599,3 +599,29 @@ def test_universal_aggregation_on_the_card(monkeypatch):
                                  PoseidonTranscript, inner_vks=[own.vk])
         assert not verify_aggregated(params, pk.vk, inst, snark.proof,
                                      PoseidonTranscript, inner_vks=[other.vk])
+
+
+@pytest.mark.parametrize("good", [True, False], ids=["good", "bad"])
+def test_evm_accumulator_toy_on_the_card(monkeypatch, good):
+    """The accumulator toy (tests/data/make_evm_reference.py) keyed and
+    proved on the card with `sdk.gen_evm_proof`: `verify_proof` accepts the
+    proof of either pair; the EVM and `execute_ir` accept the good pair
+    (P, tau P) and reject the bad one (P, (tau + 1) P)."""
+    import os
+    from halo2_zkcert_tpu_torch import evm, sdk
+    from halo2_zkcert_tpu_torch.plonk import keygen, setup, verify_proof
+    from halo2_zkcert_tpu_torch.transcript import KeccakTranscript
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    monkeypatch.syspath_prepend(os.path.join(root, "tests", "data"))
+    import make_evm_reference as ref
+    data, advice, instances = ref.acc_toy(ref.acc_pair(good), dev)
+    params = setup(data.k, device=dev)
+    pk = keygen(params, data)
+    kernels.reset_launches()
+    proof = sdk.gen_evm_proof(params, pk, advice, instances)
+    assert kernels.launches["quotient_forest"] == 1
+    assert verify_proof(params, pk.vk, instances, proof, KeccakTranscript)
+    assert sdk.evm_verify(params, pk.vk, instances, proof) == good
+    ops, _ = evm.build_verifier_ir(pk.vk, [8])
+    assert evm.execute_ir(ops, instances, proof, params) == good

@@ -1,8 +1,11 @@
 """The port's RsaCircuit against the JAX package's and the committed proving
-key: the same constraint system (digest of build/rsa_1.pk.vk), the same
-phase-0 limb tape and the same phase-1 accumulator column at a fixed
-challenge, for the benchmark link (leaf testdata/example_cert_3.pem signed
-by testdata/example_cert_2.pem) at k=17."""
+keys: the same constraint system (digest of build/rsa_{1,2}.pk.vk), the
+same fixed columns and copies, the same phase-0 limb tape and the same
+phase-1 accumulator column at a fixed challenge, at k=17, for both links of
+the reference CLI's chain: rsa_1, the benchmark link (leaf
+testdata/example_cert_3.pem signed by testdata/example_cert_2.pem, a
+2048-bit key), and rsa_2 (example_cert_2.pem signed by the root
+example_cert_1.pem, a 4096-bit key: 256 limbs)."""
 import hashlib
 import json
 import os
@@ -30,38 +33,55 @@ def _pem(name):
         return f.read()
 
 
-@pytest.fixture(scope="module")
-def link():
-    inter = cert.parse_pem(_pem("example_cert_2.pem"))
-    leaf = cert.parse_pem(_pem("example_cert_3.pem"))
-    tbs, sig = cert.extract_tbs_and_sig(leaf)
+# stem of the committed key -> (signed certificate, issuer, modulus bits)
+LINKS = {"rsa_1": ("example_cert_3.pem", "example_cert_2.pem", 2048),
+         "rsa_2": ("example_cert_2.pem", "example_cert_1.pem", 4096)}
+
+
+@pytest.fixture(scope="module", params=sorted(LINKS))
+def link(request):
+    signed, issuer, bits = LINKS[request.param]
+    modulus = cert.extract_public_key(cert.parse_pem(_pem(issuer)))
+    assert modulus.bit_length() == bits
+    tbs, sig = cert.extract_tbs_and_sig(cert.parse_pem(_pem(signed)))
     digest = hashlib.sha256(tbs).digest()
-    circuit = RsaCircuit(cert.extract_public_key(inter), k=17)
-    jinter = jcert.parse_pem(_pem("example_cert_2.pem"))
-    jcircuit = JRsaCircuit(jcert.extract_public_key(jinter), k=17)
+    circuit = RsaCircuit(modulus, k=17)
+    jcircuit = JRsaCircuit(jcert.extract_public_key(
+        jcert.parse_pem(_pem(issuer))), k=17)
     wf, inst = circuit.witness(sig, digest, "cpu")
     jwf, jinst = jcircuit.witness(sig, digest)
-    return dict(circuit=circuit, jcircuit=jcircuit, wf=wf, jwf=jwf,
-                inst=inst, jinst=jinst, sig=sig, tbs=tbs)
+    return dict(stem=request.param, circuit=circuit, jcircuit=jcircuit,
+                wf=wf, jwf=jwf, inst=inst, jinst=jinst, sig=sig, tbs=tbs)
 
 
 def test_x509_parsing_matches_jax():
-    for name in ("example_cert_2.pem", "example_cert_3.pem"):
+    for name in ("example_cert_1.pem", "example_cert_2.pem",
+                 "example_cert_3.pem"):
         c, j = cert.parse_pem(_pem(name)), jcert.parse_pem(_pem(name))
         assert cert.extract_tbs_and_sig(c) == jcert.extract_tbs_and_sig(j)
-    inter = _pem("example_cert_2.pem")
-    assert cert.extract_public_key(cert.parse_pem(inter)) == \
-        jcert.extract_public_key(jcert.parse_pem(inter))
+    for issuer in ("example_cert_1.pem", "example_cert_2.pem"):
+        pem = _pem(issuer)
+        assert cert.extract_public_key(cert.parse_pem(pem)) == \
+            jcert.extract_public_key(jcert.parse_pem(pem))
     d = bytes(range(32))
-    assert cert.pkcs1v15_sha256_em(d, 256) == jcert.pkcs1v15_sha256_em(d, 256)
+    for k_bytes in (256, 512):
+        assert cert.pkcs1v15_sha256_em(d, k_bytes) == \
+            jcert.pkcs1v15_sha256_em(d, k_bytes)
 
 
 def test_cs_digest_matches_committed_vk(link):
-    with open(os.path.join(ROOT, "build", "rsa_1.pk.vk")) as f:
+    with open(os.path.join(ROOT, "build", f"{link['stem']}.pk.vk")) as f:
         vk = vk_from_dict(json.load(f))
     cs = link["circuit"].cs
     assert cs.digest_bytes() == vk.cs.digest_bytes()
     assert cs.digest_bytes() == link["jcircuit"].cs.digest_bytes()
+    # the key cache's digest (build/rsa_2.pk.vk's sidecar predates it)
+    digest = link["circuit"].data.cache_digest_bytes()
+    assert digest == link["jcircuit"].data.cache_digest_bytes()
+    with open(os.path.join(ROOT, "build", f"{link['stem']}.pk.vk")) as f:
+        stored = json.load(f).get("cache_digest")
+    assert stored in (None, digest.hex())
+    assert stored is not None or link["stem"] == "rsa_2"
     assert link["circuit"].verify_host(link["sig"], link["tbs"])
 
 
