@@ -127,10 +127,34 @@ Phases, each printing its own line:
      pair) keyed and proved with `sdk.gen_evm_proof` for a good pair
      (P, tau P) and a bad one (P, (tau + 1) P): `verify_proof` accepts
      both, the EVM and `execute_ir` only the good one;
+ 13. (run after phase 4) the four-step transform on the int8 tensor cores
+     ("ntt_mxu"): the four-step `intt` over (8, 2^17) and `coset_ntt`
+     (8, 2^17 -> 2^19, Montgomery form out) must equal the radix-2
+     kernel's, timed beside it and the transform's own bound (ntt.cu's,
+     the same function); each base DFT launch they make (csrc/ntt_mxu.cu)
+     is held against its plain version over every column and timed beside
+     the plain version and torch._int_mm on the same s8 product (the
+     library yardstick; the port never calls it), its bound counting the
+     band of nonzero digits of the constant matrix; then the RSA k=17 proof with
+     H2T_NTT_MXU=1 on the fixed base (a warm-up and a timed proof) must
+     verify, reject a flipped byte and equal build/rsa_1.proof;
+ 14. (after phase 13) the sharded prover ("sharded"): four `gloo` ranks
+     spawned on cuda:0 (NCCL refuses two ranks on one card; the mesh stages
+     its collectives through CPU tensors), the kernels built before: on
+     each rank the sharded MSM over the k=17 SRS's 2^17 points and the
+     sharded transform and inverse of (8, 2^17) equal to the single-device
+     calls, and the RSA k=17 proof under `prover_mesh` equal to
+     build/rsa_1.proof, with its seconds, launches, transforms split or
+     replicated, and the bytes and seconds of its collectives; then a
+     one-rank `nccl` group through the same sharded calls, and, with two
+     cards or more, `nccl` ranks a card each (up to 4) through them and a
+     warm-up and 3 proofs each, beside as many proofs on one card alone
+     on the variable base (`check_card_a_rank`);
  11. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
-     them; the fixed-base proof must launch point_add, point_scan and
+     them; the four-step proof ntt_mxu and no ntt; the sharded proof (rank
+     0) no scan_madd, and point_scan_affine; the fixed-base proof must launch point_add, point_scan and
      point_row_sum under 100 times together, field_binop under 300 times,
      ntt at most 8 times and none of the chain kernels; each SHA-256
      proof quotient_forest once, and scan_madd and ntt; the RSA keygen
@@ -167,6 +191,7 @@ import argparse
 import copy
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -317,15 +342,21 @@ def _record(name, source, replaces, err, ms, plain_ms, bytes_moved, ops,
     ops/kernels.launches that the record's wrapper counts under, where
     several records (shapes, options) share one."""
     ms, issued_ms = ms
-    bound_b = bytes_moved / HBM_BYTES_PER_S * 1e3
-    bound_o = ops / OPS_PER_S * 1e3
+    bound_ms, bound_by = _bound(bytes_moved, ops)
     return {"name": name, "counter": counter or name, "route": "cuda",
             "source": source,
             "replaces": replaces, "launches": 0, "max_abs_err": err,
             "ms": ms, "issued_ms": issued_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bound_b, bound_o),
-            "bound_by": "bytes" if bound_b >= bound_o else "operations",
-            "library_ms": None}
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+
+
+def _bound(bytes_moved, ops) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes' time at the
+    memory rate and the 32-bit operations' at the peak rate."""
+    bound_b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    bound_o = ops / OPS_PER_S * 1e3
+    return max(bound_b, bound_o), ("bytes" if bound_b >= bound_o
+                                   else "operations")
 
 
 def check_field(device, n: int, rng) -> list:
@@ -1992,6 +2023,288 @@ def cli_chain(device, card: str, work: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the four-step transform on the int8 tensor cores
+# ---------------------------------------------------------------------------
+
+# the dense int8 rate of one H100 SXM's tensor cores at 700 W (data sheet),
+# and the bare Montgomery product rate measured on it (bench.py --cios-rate)
+INT8_OPS_PER_S = 1979e12
+CIOS_PRODUCTS_PER_S = 36.9e9
+# Montgomery products a base DFT's epilogue spends on an output element
+DFT_PRODUCTS = 2
+
+
+def _capture_dft_launches(fn) -> list:
+    """Run fn() and return the base DFT launches it made: (x, r_log,
+    consts, cin, cout), x cloned as it was passed."""
+    from halo2_zkcert_tpu_torch.ops import ntt_mxu
+    seen, real = [], ntt_mxu.dft_s8
+
+    def spy(x, r_log, consts, cin, cout):
+        seen.append((x.clone(), r_log, consts, cin, cout))
+        return real(x, r_log, consts, cin, cout)
+
+    ntt_mxu.dft_s8 = spy
+    try:
+        fn()
+    finally:
+        ntt_mxu.dft_s8 = real
+    return seen
+
+
+def _dft_record(name, launch) -> dict:
+    """One base DFT launch shape: the kernel against its plain version over
+    column slices (every column), its device time, the plain version's, and
+    torch._int_mm (cuBLASLt s8 x s8 -> s32) on the same product alone as the
+    library yardstick."""
+    from halo2_zkcert_tpu_torch.ops import ntt_mxu
+    x, r_log, consts, cin, cout = launch
+    r = 1 << r_log
+    m = x.numel() // 8 // r
+    groups = m // cout
+    step = max(1, 4096 // cout)
+
+    def plain(g0, g1):
+        xs = x.reshape(m // cin, -1)[g0 * cout // cin:g1 * cout // cin]
+        return ntt_mxu.dft_s8_plain(xs.reshape(-1, 8), r_log, consts, cin,
+                                    cout).reshape(g1 - g0, -1)
+
+    err, plain_ms = _sliced(name, lambda: ntt_mxu.dft_s8(
+        x, r_log, consts, cin, cout).reshape(groups, -1),
+        lambda g0, g1: plain(g0, min(g1, groups)), groups, step)
+    ms = kernel_ms(lambda: ntt_mxu.dft_s8(x, r_log, consts, cin, cout), 5)
+    digits = (ntt_mxu._columns(x, r, cin).contiguous().view(torch.uint8)
+              .reshape(m, 32 * r) ^ 0x80).view(torch.int8)
+    lhs = consts[0]
+    library_ms = cuda_ms(lambda: torch._int_mm(lhs, digits.t()), 5)
+    # the multiply-adds the function needs: of each (k, j) block of lhs,
+    # 64 limbs x 32 digits, only the band of L1 = 33 digits a column is
+    # nonzero (the kernel and torch._int_mm multiply the whole block)
+    int8_ops = 2 * ntt_mxu.L1 * ntt_mxu.NB * r * r * m
+    red_ops = OPS_PER_MUL * DFT_PRODUCTS * r * m
+    nbytes = 2 * 32 * r * m + lhs.numel() + 4 * consts[1].numel()
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = max(int8_ops / INT8_OPS_PER_S, red_ops / OPS_PER_S) * 1e3
+    rec = _record(name, "halo2_zkcert_tpu_torch/csrc/ntt_mxu.cu",
+                  "halo2_zkcert_tpu/ops/ntt_mxu.py:184", err, ms, plain_ms,
+                  0, 0, "ntt_mxu")
+    rec.update(bound_ms=max(b_ms, o_ms),
+               bound_by="bytes" if b_ms >= o_ms else "operations",
+               library_ms=library_ms, int8_ops=int8_ops,
+               int8_bound_ms=int8_ops / INT8_OPS_PER_S * 1e3,
+               reduction_bound_ms=red_ops / OPS_PER_S * 1e3,
+               reduction_ms_at_measured_rate=DFT_PRODUCTS * r * m
+               / CIOS_PRODUCTS_PER_S * 1e3,
+               shape={"radix": r, "columns": m, "cin": cin, "cout": cout})
+    return rec
+
+
+def check_ntt_mxu(device, rng, link) -> tuple:
+    """Phase 13.  The four-step at the RSA path's shapes: `intt` over
+    (8, 2^17) and `coset_ntt` (8, 2^17 -> 2^19) with Montgomery form out,
+    each equal to the radix-2 kernel's transform and timed; every base DFT
+    launch they make held against its plain version and timed beside
+    torch._int_mm.  Then the RSA k=17 proof with H2T_NTT_MXU=1 (fixed base):
+    it must verify, reject a flipped byte and equal build/rsa_1.proof.
+    Returns (records, launches of the timed proof)."""
+    from halo2_zkcert_tpu_torch.ops import ntt, ntt_mxu
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    g = rc.FR_GENERATOR
+    a = random_canonical(rng, 8 << 17, device, FR.modulus).reshape(8, 1 << 17,
+                                                                   8)
+    recs = []
+    for label, mxu, radix2, kk, n_out in (
+            ("inverse[8x131072]", lambda: ntt_mxu.intt(a, 17),
+             lambda: ntt.intt(a, 17), 17, 1 << 17),
+            ("coset.mont[8x131072->524288]",
+             lambda: ntt_mxu.coset_ntt(a, 19, g, out_mont=True),
+             lambda: ntt.coset_ntt(a, 19, g, out_mont=True), 19, 1 << 19)):
+        launches = _capture_dft_launches(mxu)
+        ok = torch.equal(mxu(), radix2())
+        mxu_ms, mxu_issued = kernel_ms(mxu, 3)
+        r2_ms, _ = kernel_ms(radix2, 3)
+        # the transform's own bound, as check_ntt gives it to ntt.cu
+        bound_ms, bound_by = _bound(32 * 8 * ((1 << 17) + n_out),
+                                    OPS_PER_MUL * 8 * n_out * kk // 2)
+        log(f"[ntt_mxu] four-step {label}: "
+            f"{'equal to' if ok else 'DIFFERENT FROM'} the radix-2 kernel's; "
+            f"levels {[l[1] for l in launches]}, {mxu_ms:.4f} ms "
+            f"({mxu_issued:.4f} as issued; base DFTs and twiddle products) "
+            f"against ntt.cu {r2_ms:.4f} ms; the transform's bound "
+            f"{bound_ms:.4f} ms by {bound_by}")
+        if not ok:
+            raise AssertionError(f"four-step {label} differs from ntt.cu")
+        for i, launch in enumerate(launches):
+            recs.append(_dft_record(
+                f"ntt_mxu.dft[{label} level {i}: r={1 << launch[1]}]", launch))
+            torch.cuda.empty_cache()
+    del a
+    torch.cuda.empty_cache()
+    with environ_set("H2T_NTT_MXU", "1"):
+        launches = prove(device, "four-step", *link, warmup=True)
+    return recs, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the sharded prover over torch.distributed
+# ---------------------------------------------------------------------------
+
+SHARDED_SEED = 1414
+
+
+def _sharded_rank(mesh, params_dir: str, proofs: int) -> dict:
+    """One rank of phase 14: the sharded MSM over the k=17 SRS's 2^17
+    points and the sharded transform and inverse of (8, 2^17), each against
+    the single-device call; then `proofs` RSA k=17 proofs under
+    `prover_mesh`, the traffic, transforms and launches of the last.  Runs
+    in a spawned process."""
+    from halo2_zkcert_tpu_torch.bench import load_rsa_link, prove_rsa
+    from halo2_zkcert_tpu_torch.ops import kernels, msm, ntt
+    from halo2_zkcert_tpu_torch.ops.field import FR
+    from halo2_zkcert_tpu_torch.parallel import (msm_sharded_affine,
+                                                 ntt_sharded, prover_mesh)
+    from halo2_zkcert_tpu_torch.parallel.ntt_sharded import counts
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    dev, out = mesh.device, {"rank": mesh.rank, "backend": mesh.backend,
+                             "staged": mesh.staged}
+    params = kzg.ParamsKZG.read(os.path.join(params_dir, "kzg_bn254_17.srs"),
+                                dev)
+    rng = np.random.default_rng(SHARDED_SEED)
+    sc = random_canonical(rng, 1 << 17, dev, FR.modulus)
+    got = msm_sharded_affine(params.g, sc, mesh)
+    out["msm_equal"] = torch.equal(got, msm.msm(params.g, sc))
+    a = random_canonical(rng, 8 << 17, dev, FR.modulus).reshape(8, 1 << 17, 8)
+    m = (1 << 17) // mesh.size
+    rows = slice(mesh.rank * m, (mesh.rank + 1) * m)
+    block = a[:, rows].contiguous()
+    out["ntt_equal"] = torch.equal(ntt_sharded(block, 17, mesh),
+                                   ntt.ntt(a, 17)[:, rows])
+    out["intt_equal"] = torch.equal(ntt_sharded(block, 17, mesh, True),
+                                    ntt.intt(a, 17)[:, rows])
+    torch.cuda.synchronize(dev)
+    out["checks_bytes"], out["checks_seconds"] = mesh.bytes_sent, mesh.seconds
+    if proofs:
+        link = load_rsa_link(dev)
+        out["proofs"], out["seconds"] = [], []
+        for _ in range(proofs):
+            mesh.bytes_sent, mesh.seconds, mesh.collectives = 0, 0.0, 0
+            counts.clear()
+            kernels.reset_launches()
+            with prover_mesh(mesh):
+                proof, instances, dt = prove_rsa(params, *link, dev)
+            out["proofs"].append((proof, instances))
+            out["seconds"].append(dt)
+        out.update(launches=dict(kernels.launches), counts=dict(counts),
+                   bytes=mesh.bytes_sent, comm_seconds=mesh.seconds,
+                   collectives=mesh.collectives,
+                   peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    return out
+
+
+def _report_sharded(label: str, res: list) -> None:
+    """Log each rank of a phase 14 run; fail unless its checks hold and
+    every proof equals build/rsa_1.proof with no scan_madd launch."""
+    from halo2_zkcert_tpu_torch.sdk import Snark
+    ref = Snark.read(os.path.join(REPO, "build", "rsa_1.proof"))
+    bad = []
+    for out in res:
+        checks = (out["msm_equal"], out["ntt_equal"], out["intt_equal"])
+        line = (f"[sharded] {label} rank {out['rank']} "
+                f"({out['backend']}, staged through the host: "
+                f"{out['staged']}): msm, ntt, intt equal to one device: "
+                f"{checks}; their collectives {out['checks_bytes']} "
+                f"bytes sent in {out['checks_seconds']:.3f} s")
+        if not all(checks):
+            bad.append(f"rank {out['rank']} checks")
+        if "proofs" in out:
+            same = all(p == (ref.proof, ref.instances) for p in out["proofs"])
+            line += (f"; proofs {[round(t, 4) for t in out['seconds']]} s, "
+                     f"{'equal to' if same else 'DIFFERENT FROM'} "
+                     f"build/rsa_1.proof; the last: collectives "
+                     f"{out['collectives']}, {out['bytes']} bytes sent in "
+                     f"{out['comm_seconds']:.3f} s; transforms "
+                     f"{json.dumps(out['counts'], sort_keys=True)}; "
+                     f"peak {out['peak_gb']:.2f} GB; launches "
+                     f"{json.dumps(out['launches'], sort_keys=True)}")
+            if not same:
+                bad.append(f"rank {out['rank']} proof")
+            if out["launches"].get("scan_madd", 0):
+                bad.append(f"rank {out['rank']} launched scan_madd")
+        log(line)
+    if bad:
+        raise AssertionError(f"sharded {label}: {bad}")
+
+
+def check_card_a_rank(card: str, params_dir: str, cards: int,
+                      repeat: int = 3) -> None:
+    """`cards` `nccl` ranks, one card each: the sharded checks and a warm-up
+    and `repeat` RSA k=17 proofs on every rank, beside as many proofs on
+    cuda:0 alone on the variable base (the commitment path a mesh takes);
+    every proof equal to build/rsa_1.proof.  Needs the kernels built and
+    the k=17 SRS in params_dir (phase 2 writes it)."""
+    from halo2_zkcert_tpu_torch.bench import load_rsa_link, prove_rsa
+    from halo2_zkcert_tpu_torch.parallel.mesh import run_ranks
+    from halo2_zkcert_tpu_torch.plonk import kzg
+    from halo2_zkcert_tpu_torch.sdk import Snark
+    ref = Snark.read(os.path.join(REPO, "build", "rsa_1.proof"))
+    device = torch.device("cuda", 0)
+    params = kzg.ParamsKZG.read(os.path.join(params_dir, "kzg_bn254_17.srs"),
+                                device)
+    link = load_rsa_link(device)
+    one = []
+    with environ_set("H2T_FB_MSM", "0"):
+        for _ in range(repeat + 1):
+            proof, instances, dt = prove_rsa(params, *link, device)
+            if (proof, instances) != (ref.proof, ref.instances):
+                raise AssertionError("one card's variable-base proof differs "
+                                     "from build/rsa_1.proof")
+            one.append(dt)
+    del params, link
+    torch.cuda.empty_cache()
+    label = f"nccl x{cards}, a card a rank"
+    res = run_ranks(_sharded_rank, cards, "nccl",
+                    [f"cuda:{i}" for i in range(cards)],
+                    args=(params_dir, repeat + 1))
+    _report_sharded(label, res)
+    medians = [statistics.median(out["seconds"][1:]) for out in res]
+    log(f"[sharded] {label}: median of {repeat} warm proofs a rank "
+        f"{[round(t, 4) for t in medians]} s, bytes sent a rank in the last "
+        f"{[out['bytes'] for out in res]}; cuda:0 alone, variable base: "
+        f"{[round(t, 4) for t in one[1:]]} s, median "
+        f"{statistics.median(one[1:]):.4f} s; {card}")
+
+
+def check_sharded(card: str, params_dir: str) -> dict:
+    """Phase 14.  Four `gloo` ranks sharing cuda:0 (NCCL refuses two ranks
+    on one device; the mesh stages its collectives through CPU tensors):
+    the sharded MSM and transforms, and the RSA k=17 proof under
+    `prover_mesh`, equal to build/rsa_1.proof on every rank with no
+    scan_madd launch.  Then a one-rank `nccl` group through the same
+    sharded calls, and, where the machine has two cards or more,
+    `check_card_a_rank` over up to 4.  Returns the launches of rank 0's
+    proof."""
+    from halo2_zkcert_tpu_torch.parallel.mesh import run_ranks
+    t0 = time.perf_counter()
+    res = run_ranks(_sharded_rank, 4, "gloo", ["cuda:0"] * 4,
+                    args=(params_dir, 1))
+    log(f"[sharded] 4 gloo ranks on cuda:0: {time.perf_counter() - t0:.3f} s "
+        f"with spawning; {card}")
+    _report_sharded("gloo x4 on one card", res)
+    t0 = time.perf_counter()
+    _report_sharded("nccl x1", run_ranks(_sharded_rank, 1, "nccl", ["cuda:0"],
+                                         args=(params_dir, 0)))
+    log(f"[sharded] one nccl rank: {time.perf_counter() - t0:.3f} s")
+    cards = min(torch.cuda.device_count(), 4)
+    if cards >= 2:
+        check_card_a_rank(card, params_dir, cards)
+    else:
+        log(f"[sharded] {torch.cuda.device_count()} card: no nccl proof with "
+            f"a card a rank")
+    return res[0]["launches"]
+
+
 def check_launches(launches: dict) -> None:
     """The launch counts each driven path must keep (module docstring)."""
     fb = launches["fixed_base_proof"]
@@ -2043,7 +2356,19 @@ def check_launches(launches: dict) -> None:
                 and not any(p.get(k, 0) for k in chains
                             if k != "point_windows"))
 
+    mxu, sharded = launches["ntt_mxu_proof"], launches["sharded_proof"]
     rules = (
+        ("the four-step proof (H2T_NTT_MXU=1): ntt_mxu, no ntt, one "
+         "quotient_forest",
+         mxu.get("ntt_mxu", 0) > 0 and mxu.get("ntt", 0) == 0
+         and mxu.get("quotient_forest", 0) == 1),
+        ("the sharded proof (rank 0 of 4): no scan_madd, point_scan_affine "
+         "(the variable base), ntt, one quotient_forest, no ntt_mxu",
+         not sharded.get("scan_madd", 0)
+         and sharded.get("point_scan_affine", 0) > 0
+         and sharded.get("ntt", 0) > 0
+         and sharded.get("quotient_forest", 0) == 1
+         and not sharded.get("ntt_mxu", 0)),
         ("the k=20 aggregation's Keccak proof (the EVM flow): one "
          "quotient_forest, ntt, scan_madd, field_scan, field_row_sum, "
          "point_scan, point_row_sum, no chain kernel",
@@ -2184,6 +2509,18 @@ def main() -> int:
     with environ_set("H2T_FB_MSM", "0"):
         launches["variable_base_proof"] = prove(device, "variable base",
                                                 *link, warmup=False)
+    mxu_recs, launches["ntt_mxu_proof"] = check_ntt_mxu(device, rng, link)
+    recs += mxu_recs
+    for r in mxu_recs:
+        log(f"[kernels] {r['name']}: {r['ms']:.4f} ms ({r['issued_ms']:.4f} "
+            f"as issued from Python, plain {r['plain_ms']:.3f} ms, "
+            f"torch._int_mm {r['library_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms by {r['bound_by']}: int8 "
+            f"{r['int8_bound_ms']:.4f}, reduction {r['reduction_bound_ms']:.4f}"
+            f" ({r['reduction_ms_at_measured_rate']:.4f} at the measured "
+            f"product rate); {card})")
+    torch.cuda.empty_cache()
+    launches["sharded_proof"] = check_sharded(card, params_dir)
     launches["keygen_rsa"] = check_keygen_rsa(device, params, circuit, card)
     del params, circuit, pk, link
     torch.cuda.empty_cache()
@@ -2233,7 +2570,8 @@ def main() -> int:
             f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms by "
             f"{r['bound_by']}; {card})")
 
-    paths = ("fixed_base_proof", "variable_base_proof", "ragged_msm",
+    paths = ("fixed_base_proof", "variable_base_proof", "ntt_mxu_proof",
+             "sharded_proof", "ragged_msm",
              "table_build", "srs_setup", "keygen_rsa", "sha256_setup",
              "sha256_1_keygen", "sha256_1_proof", "sha256_2_keygen",
              "sha256_2_proof", "builder_sample_keygen",

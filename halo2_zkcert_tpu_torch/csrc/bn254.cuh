@@ -878,4 +878,52 @@ H2T_HD void fs_run_apply(uint32_t* a, const uint32_t* b, int cnt,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The four-step transform's base DFT (csrc/ntt_mxu.cu, ops/ntt_mxu.py).
+// Column `col` of a (m / cstride, r, cstride) layout holds its element `row`
+// at dft_addr(col, row, r, cstride).  An output element arrives as 64
+// base-256 limbs, limb l = raw[l * stride] + corr[l], each in [0, 2^31) by
+// the construction of corr (a multiple of p and the data's offset folded in
+// on the host); they carry into 17 words V < 2^544, and
+//   V = c0 + c1 2^253 + c2 2^506,  c0, c1 < 2^253 < p,  c2 < 2^38,
+// so V mod p = c0 + mont_mul(c1, 2^253 R) + mont_mul(c2, 2^506 R).
+// ---------------------------------------------------------------------------
+
+static const int DFT_LIMBS = 64;  // product limbs of an output element
+static const int DFT_BYTES = 32;  // exact bytes of an input element
+
+H2T_HD long long dft_addr(long long col, long long row, int r,
+                          long long cstride) {
+  return ((col / cstride) * r + row) * cstride + col % cstride;
+}
+
+H2T_HD Fe dft_limbs_to_fe(const int32_t* raw, long long stride,
+                          const int32_t* corr, const Fe& f253,
+                          const Fe& f506) {
+  uint32_t v[17];
+  uint64_t acc = 0;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      const int l = 4 * i + t;
+      acc += (uint64_t)(uint32_t)(raw[l * stride] + corr[l]) << (8 * t);
+    }
+    v[i] = (uint32_t)acc;
+    acc >>= 32;
+  }
+  v[16] = (uint32_t)acc;
+  Fe c0, c1, c2 = fe_zero();
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c0.w[i] = v[i];
+    c1.w[i] = (v[7 + i] >> 29) | (v[8 + i] << 3);
+  }
+  c0.w[7] &= 0x1fffffffu;
+  c1.w[7] &= 0x1fffffffu;
+  c2.w[0] = (v[15] >> 26) | (v[16] << 6);
+  c2.w[1] = v[16] >> 26;
+  return fadd<FR>(c0, fadd<FR>(mont_mul<FR>(c1, f253), mont_mul<FR>(c2, f506)));
+}
+
 }  // namespace bn254

@@ -287,3 +287,35 @@ extern "C" int hc_field_reduce(int field, int op, const uint32_t* a,
   HC_REDUCE(FQ, FS_PROD) HC_REDUCE(FQ, FS_SUM) HC_REDUCE(FQ, FS_AFFINE)
   return 1;
 }
+
+// csrc/ntt_mxu.cu's base DFT with its product written as loops: the same
+// digits (byte ^ 0x80 read as s8), addresses and epilogue.
+extern "C" void hc_dft_s8(const int8_t* lhs, const int32_t* corr,
+                          const uint32_t* fold, const uint32_t* in,
+                          uint32_t* out, long long m, int r_log,
+                          long long cin, long long cout) {
+  const int r = 1 << r_log;
+  const long long K = (long long)DFT_BYTES * r;
+  std::vector<int8_t> digits(K);
+  std::vector<int32_t> raw(DFT_LIMBS);
+  const Fe f253 = load_fe(fold), f506 = load_fe(fold + 8);
+  for (long long col = 0; col < m; ++col) {
+    for (int j = 0; j < r; ++j) {
+      const uint8_t* b = reinterpret_cast<const uint8_t*>(
+          in + dft_addr(col, j, r, cin) * 8);
+      for (int l2 = 0; l2 < DFT_BYTES; ++l2)
+        digits[j * DFT_BYTES + l2] = (int8_t)(b[l2] ^ 0x80);
+    }
+    for (int k = 0; k < r; ++k) {
+      for (int l = 0; l < DFT_LIMBS; ++l) {
+        const int8_t* row = lhs + ((long long)k * DFT_LIMBS + l) * K;
+        int32_t s = 0;
+        for (long long q = 0; q < K; ++q) s += (int32_t)row[q] * digits[q];
+        raw[l] = s;
+      }
+      store_fe(out + dft_addr(col, k, r, cout) * 8,
+               dft_limbs_to_fe(raw.data(), 1, corr + k * DFT_LIMBS, f253,
+                               f506));
+    }
+  }
+}

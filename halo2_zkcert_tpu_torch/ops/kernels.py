@@ -30,6 +30,7 @@ SOURCES = {
     "field_binop": "field_binop.cu",
     "field_scan": "field_scan.cu",
     "ntt": "ntt.cu",
+    "ntt_mxu": "ntt_mxu.cu",
     "point_chain": "point_chain.cu",
     "point_ops": "point_ops.cu",
     "point_scan": "point_scan.cu",
@@ -49,6 +50,7 @@ _SIGNATURES = {
     "h2t_field_scan": [_I, _I, _P, _P, _P, _P, _P, _L, _L, _L, _I, _P],
     "h2t_field_reduce": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _P],
     "h2t_ntt_pass": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _L, _P, _L, _P],
+    "h2t_dft_s8": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
     "h2t_point_add": [_P, _P, _P, _L, _P],
     "h2t_point_double": [_P, _P, _L, _P],
     "h2t_point_add_mixed": [_P, _P, _P, _L, _P],

@@ -12,10 +12,16 @@ radix-2 decimation-in-time transform stage by stage, the bit reversal one
 gather, every stage one K1 multiply by the stage twiddles plus one K1 add and
 sub.  The result is the standard DFT X[i] = sum_j a[j] w^(ij) as canonical
 residues, so it equals the reference's values whatever the internal order.
+
+With H2T_NTT_MXU=1 (read at each call; default off) the four transforms go
+to the four-step on the int8 tensor cores (ops/ntt_mxu.py) instead, on any
+device, except while a prover mesh of more than one rank is active
+(parallel/context.py), as in halo2_zkcert_tpu/ops/ntt.py:102-124.
 """
 from __future__ import annotations
 
 import math
+import os
 
 import torch
 
@@ -199,8 +205,22 @@ def _transform(a: torch.Tensor, k: int, inverse: bool, in_scale=None,
     return run_passes(launch, a, k, tw, in_scale, out_scale)
 
 
+def _mxu():
+    """ops/ntt_mxu when H2T_NTT_MXU=1 and no mesh of several ranks is
+    active, else None."""
+    if os.environ.get("H2T_NTT_MXU", "0") != "1":
+        return None
+    from ..parallel.context import multi_rank
+    if multi_rank() is not None:
+        return None
+    from . import ntt_mxu
+    return ntt_mxu
+
+
 def ntt(a: torch.Tensor, k: int) -> torch.Tensor:
     """Forward NTT: values X[i] = sum_j a[j] w^(ij)."""
+    if (mxu := _mxu()) is not None:
+        return mxu.ntt(a, k)
     if a.device.type == "cpu":
         return ntt_plain(a, k)
     return _transform(a, k, False)
@@ -208,6 +228,8 @@ def ntt(a: torch.Tensor, k: int) -> torch.Tensor:
 
 def intt(a: torch.Tensor, k: int) -> torch.Tensor:
     """Inverse NTT, including the 1/n scaling."""
+    if (mxu := _mxu()) is not None:
+        return mxu.intt(a, k)
     if a.device.type == "cpu":
         return intt_plain(a, k)
     n_inv = _scale_table(("n_inv", k), a.device, lambda: field.const_mont(
@@ -221,6 +243,8 @@ def coset_ntt(a: torch.Tensor, k: int, g: int,
     stands for its zero-padded self.  With `out_mont` the values leave in
     Montgomery form (x * R), at no cost: the transform is linear and the
     table of powers carries the factor."""
+    if (mxu := _mxu()) is not None:
+        return mxu.coset_ntt(a, k, g, out_mont)
     if a.device.type == "cpu":
         return coset_ntt_plain(a, k, g, out_mont)
 
@@ -237,6 +261,8 @@ def coset_intt(a: torch.Tensor, k: int, g: int,
     """Interpolate values on the coset g*H back to coefficients.  With
     `in_mont` the values arrive in Montgomery form and the coefficients
     still leave canonical."""
+    if (mxu := _mxu()) is not None:
+        return mxu.coset_intt(a, k, g, in_mont)
     if a.device.type == "cpu":
         return coset_intt_plain(a, k, g, in_mont)
 

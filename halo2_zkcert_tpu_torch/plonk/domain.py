@@ -2,7 +2,10 @@
 g * H_ext of size 2^extended_k, and Z_H(X) = X^n - 1.
 
 Counterpart of halo2_zkcert_tpu/plonk/domain.py; device tables are built on
-the domain's `device` and cached there.
+the domain's `device` and cached there.  While a prover mesh of more than one
+rank is active, a transform whose length divides by the square of its size
+is split over it (parallel/ntt_sharded.py `transform_gathered`) and its
+result all-gathered; any other runs replicated and is counted.
 """
 from __future__ import annotations
 
@@ -13,6 +16,8 @@ import torch
 
 from ..ops import field, ntt
 from ..ops.field import FR
+from ..parallel.context import multi_rank, split_mesh
+from ..parallel.ntt_sharded import counts as sharded_counts, transform_gathered
 from ..utils import refcrypto as rc
 
 
@@ -79,21 +84,44 @@ class Domain:
 
     # ---- device transforms (columns along axis -2) --------------------------
 
+    @staticmethod
+    def _over_mesh(a, k, inverse, g=None, mont=False):
+        """The transform split over the active mesh when there is one of
+        several ranks and 2^k divides by its size squared, else None (a
+        transform left replicated under such a mesh is counted)."""
+        mesh = split_mesh(1 << k, square=True)
+        if mesh is None:
+            if multi_rank() is not None:
+                sharded_counts["replicated"] += 1
+            return None
+        sharded_counts["sharded"] += 1
+        return transform_gathered(a, k, mesh, inverse, g, mont)
+
     def lagrange_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
-        return ntt.intt(values, self.k)
+        out = self._over_mesh(values, self.k, True)
+        return ntt.intt(values, self.k) if out is None else out
 
     def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
-        return ntt.ntt(coeffs, self.k)
+        out = self._over_mesh(coeffs, self.k, False)
+        return ntt.ntt(coeffs, self.k) if out is None else out
 
     def coeff_to_extended(self, coeffs: torch.Tensor,
                           out_mont: bool = False) -> torch.Tensor:
         """(..., n, 8) coefficients -> (..., ext_n, 8) coset values (the
         transform pads with zeros); in Montgomery form with `out_mont`."""
-        return ntt.coset_ntt(coeffs, self.extended_k, self.G_COSET, out_mont)
+        ek = self.extended_k
+        out = self._over_mesh(coeffs, ek, False, self.G_COSET, out_mont)
+        if out is None:
+            out = ntt.coset_ntt(coeffs, ek, self.G_COSET, out_mont)
+        return out
 
     def extended_to_coeff(self, values: torch.Tensor,
                           in_mont: bool = False) -> torch.Tensor:
-        return ntt.coset_intt(values, self.extended_k, self.G_COSET, in_mont)
+        ek = self.extended_k
+        out = self._over_mesh(values, ek, True, self.G_COSET, in_mont)
+        if out is None:
+            out = ntt.coset_intt(values, ek, self.G_COSET, in_mont)
+        return out
 
     @cached_property
     def zh_inv_extended(self) -> torch.Tensor:

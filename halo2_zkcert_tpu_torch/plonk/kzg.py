@@ -21,6 +21,11 @@ polynomials, small domains, CPU tensors) takes the variable-base Pippenger
 of ops/msm.py.  Two environment knobs, read at each call: H2T_FB_MSM
 (`auto`, `0` = always variable base, `1` = always fixed base) and
 H2T_FB_BOUNDED=0 (ignore the value-bit hints of bounded columns).
+
+While a prover mesh of more than one rank is active (parallel/context.py),
+commitments take no fixed-base tables, and those whose base length divides
+by the mesh size go through parallel/msm_sharded.py, as the JAX package's
+`_commit_batch` does (halo2_zkcert_tpu/plonk/kzg.py:389-430).
 """
 from __future__ import annotations
 
@@ -34,6 +39,8 @@ import torch
 from ..ops import curve, field, frops, msm, scan
 from ..ops.field import FQ, FR
 from ..ops.msm_fb import FixedBaseMsm
+from ..parallel.context import multi_rank, split_mesh
+from ..parallel.msm_sharded import msm_sharded
 from ..utils import refcrypto as rc
 
 MAGIC = b"H2TPUSRS"
@@ -171,6 +178,8 @@ def _stack(cols):
 
 
 def _fb_wanted(n: int, device: torch.device) -> bool:
+    if multi_rank() is not None:
+        return False
     mode = os.environ.get("H2T_FB_MSM", "auto")
     if mode in ("0", "1"):
         return mode == "1"
@@ -191,10 +200,15 @@ def _fb_commit(fb: FixedBaseMsm, cols: torch.Tensor, value_bits=None,
 
 
 def _commit(base: torch.Tensor, cols: torch.Tensor) -> list:
+    mesh = split_mesh(base.shape[0])
     out = []
     for off in range(0, cols.shape[0], COMMIT_GROUP):
-        out.extend(_affine_ints(
-            msm.msm_many(base, cols[off:off + COMMIT_GROUP])))
+        group = cols[off:off + COMMIT_GROUP]
+        if mesh is not None:
+            accs = msm_sharded(base, group, mesh)
+        else:
+            accs = msm.msm_many(base, group)
+        out.extend(_affine_ints(accs))
     return out
 
 

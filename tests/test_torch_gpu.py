@@ -625,3 +625,39 @@ def test_evm_accumulator_toy_on_the_card(monkeypatch, good):
     assert sdk.evm_verify(params, pk.vk, instances, proof) == good
     ops, _ = evm.build_verifier_ir(pk.vk, [8])
     assert evm.execute_ir(ops, instances, proof, params) == good
+
+
+@pytest.mark.parametrize("r_log,G,C,cout", [
+    (1, 2, 1, 1), (3, 5, 3, 3), (5, 2, 70, 140), (6, 3, 129, 387),
+    (7, 2, 64, 64), (6, 64, 64, 4096)])
+def test_dft_s8_kernel(r_log, G, C, cout):
+    """csrc/ntt_mxu.cu against its plain version word for word: small radices,
+    a ragged column count (not whole 128-column tiles), input and output
+    column strides that differ, and the largest radix; one launch each."""
+    from halo2_zkcert_tpu_torch.ops import ntt_mxu
+    dev = _device()
+    r = 1 << r_log
+    x = _rand(FR, r_log * 7 + C, G * r * C, dev)
+    consts = ntt_mxu._consts(r_log, rc.fr_root_of_unity(r_log), 5, 3, FR.r,
+                             dev)
+    before = kernels.launches["ntt_mxu"]
+    got = ntt_mxu.dft_s8(x, r_log, consts, C, cout)
+    assert kernels.launches["ntt_mxu"] == before + 1
+    assert torch.equal(got, ntt_mxu.dft_s8_plain(x, r_log, consts, C, cout))
+
+
+@pytest.mark.parametrize("k", [1, 7, 10, 13, 17])
+def test_ntt_mxu_on_the_card(k):
+    """The four-step on the card equals the radix-2 kernel's transforms,
+    every flavour, three columns, a short input."""
+    from halo2_zkcert_tpu_torch.ops import ntt_mxu
+    dev = _device()
+    n, g = 1 << k, rc.FR_GENERATOR
+    a = _rand(FR, 50 + k, 3 * n, dev).reshape(3, n, 8)
+    short = a[:, :max(1, n // 4 + 1)]
+    assert torch.equal(ntt_mxu.ntt(a, k), ntt.ntt(a, k))
+    assert torch.equal(ntt_mxu.intt(a, k), ntt.intt(a, k))
+    assert torch.equal(ntt_mxu.coset_ntt(short, k, g, out_mont=True),
+                       ntt.coset_ntt(short, k, g, out_mont=True))
+    assert torch.equal(ntt_mxu.coset_intt(a, k, g, in_mont=True),
+                       ntt.coset_intt(a, k, g, in_mont=True))
