@@ -70,7 +70,9 @@ Phases, each printing its own line:
      16 columns at 2^19, the mixed-add row scan over a commitment batch's
      2^25 pairs with their digits, and the k=19 SRS's 2^20 fixed-base
      products (the window tables are built in 2^17-point slices, phase 2's
-     shape);
+     shape); the proof again under H2T_SELFCHECK=1 and =4 (phase 15's
+     checks: the same bytes, every verdict OK, K4's 48-slot
+     rematerialized tape held to the exact oracle);
  12. (run before phase 10, whose inner snarks it writes) the reference
      CLI's chain through `cli.main` on the card ("cli"), its build and
      params directories in a temporary directory under build/, the
@@ -78,12 +80,17 @@ Phases, each printing its own line:
      prove-rsa for both RSA links (example_cert_3 by example_cert_2, and
      example_cert_2 by the root example_cert_1, a 4096-bit key); gen-zkevm-
      sha256-keys and prove-zkevm-sha256 for example_cert_3 and
-     example_cert_2 (k=12).  Each snark file must equal
+     example_cert_2 (k=12); gen-unoptimized-sha256-keys and
+     prove-unoptimized-sha256 for example_cert_3 at k=19.  Each snark file
+     of the first four must equal
      build/{rsa_1,rsa_2,sha256_1,sha256_2}.proof in its proof bytes,
      instances and vk, and each key's vk build/<stem>.pk.vk in its
      commitments, constraint system and cache digest (where that sidecar
-     has one); each subcommand's
-     wall seconds, each key file's size and write seconds;
+     has one); the k=19 one must verify, be rejected with a byte flipped
+     and carry hashlib's digest; each prove subcommand must read the key
+     file its keys subcommand wrote and make no key; each subcommand's
+     wall seconds, each key file's bytes, write and read seconds and the
+     host's resident memory before and at its peak;
  10. the X.509 aggregation of the reference CLI's `gen-x509-agg-proof`
      ("x509_agg"): X509VerifierAggregationCircuit over the four inner
      snarks phase 12 wrote at k=20, lanes 8, na 8, nl 1, fixed-vk mode.  First the
@@ -95,12 +102,16 @@ Phases, each printing its own line:
      and the instances held to tests/data/aggregation_reference.npz (the
      JAX package's digests at its tau, the MockProver's challenge), its
      accumulator must fail the deferred pairing (ROADMAP fault C2) though
-     MockProver on the card is satisfied (on that pass).  Then the port's circuit: record
-     pass, `sdk.gen_pk` (the constraint system of build/x509_agg.pk.vk),
-     MockProver on the card (satisfied), `sdk.gen_snark` with the default
-     blinding seed (its stages and the proof's blake2b),
-     `verify_aggregated` true and false for a flipped byte; each step's
-     seconds and peak device memory.  Then the kernels at the shapes that
+     MockProver on the card is satisfied (on that pass).  Then the port's
+     circuit through the CLI's subcommands on `cli.main`: gen-x509-agg-keys
+     (the k=20 SRS set up and written, keygen: the constraint system of
+     build/x509_agg.pk.vk; the key file's bytes, write seconds and host
+     memory), gen-x509-agg-proof (the key read from that file and not made
+     again, its read seconds and host memory; MockProver on the card,
+     satisfied, on the circuit it recorded, through a wrapper of
+     `cli.aggregation_step`; the snark with the default blinding seed, its
+     stages and blake2b; `verify_aggregated` true, and false for a flipped
+     byte), each subcommand's seconds and peak device memory.  Then the kernels at the shapes that
      path gave them and no earlier record holds: the transforms of its 67
      fresh columns from 2^20 onto 2^22 and back, its 23 grand products and
      the batched inversion's 23 x 2^20 row, the row sums of 16 columns at
@@ -108,8 +119,8 @@ Phases, each printing its own line:
      262 192 x 64), the k=20 SRS's 2^21 fixed-base products, and K4 on its
      tape over 2^22 rows (157 leaves; the plain version on the first 2^18
      rows).  Before those kernels, right after `verify_aggregated`, the
-     CLI's `gen-x509-agg-evm-proof` after its key ("x509_agg_evm",
-     `cli.aggregation_step` on the port's k=20 key): the
+     CLI's `gen-x509-agg-evm-proof` on `cli.main` ("x509_agg_evm", the key
+     read from the same file): the
      Solidity verifier (its length and blake2b), the Keccak proof (its
      witness a fresh phase-1 pass at the Keccak transcript's tau; stages,
      bytes, blake2b, peak device memory), `evm_verify`; then
@@ -150,6 +161,14 @@ Phases, each printing its own line:
      cards or more, `nccl` ranks a card each (up to 4) through them and a
      warm-up and 3 proofs each, beside as many proofs on one card alone
      on the variable base (`check_card_a_rank`);
+ 15. (after phase 13) the prover's debugging knobs ("knobs"): the RSA
+     k=17 proof on the fixed base under H2T_SELFCHECK=1, 2, 3, 4 and
+     H2T_EVAL_MODE=coeff must equal build/rsa_1.proof with every verdict
+     OK (plonk/prover.py LAST_SELFCHECK); then with a fault patched into
+     plonk/prover.py for the run, a Z value before its commitment must be
+     reported at level 1 (the identity at x: MISMATCH) and at level 3 (the
+     recurrence: VIOLATED), a row of K4's output at level 4 (the window:
+     MISMATCH);
  11. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
@@ -170,8 +189,14 @@ Phases, each printing its own line:
      the scans of field elements and of points and K6 and no chain kernel,
      its keygen K1's product, ntt and scan_madd and no chain kernel, its
      SRS and tables point_fixed_mul and 16 point_windows (17 where G's
-     table is built on the way); its Keccak proof (the EVM flow) what its
-     Poseidon proof launches; the CLI's 4096-bit RSA proof what the
+     table is built on the way); the CLI's k=20 keygen at most one
+     point_fixed_mul and 8 point_windows (its SRS and Lagrange table), its
+     proof at most 8 point_windows (the monomial table) and its Keccak
+     proof (the EVM flow, both tables cached) no chain kernel; the CLI's
+     k=19 keygen at most one point_fixed_mul and 4 point_windows, its
+     proof one quotient_forest and at most 4 point_windows; the proof
+     under H2T_SELFCHECK=3 more K1 products and differences than the
+     fixed-base proof, under H2T_EVAL_MODE=coeff more ntt; the CLI's 4096-bit RSA proof what the
      fixed-base proof launches (and at most 8 more ntt: the first proof
      with a key puts the key's columns on the extended domain) and no
      chain kernel, its first RSA proof
@@ -1518,6 +1543,20 @@ def sha256_gate_cli(device, card: str) -> dict:
     if not (ok and rejected and digest):
         raise AssertionError("sha256_gate_cli: verifier or digest check "
                              "failed")
+    # phase 15 at k=19: the identity at x, and K4's 48-slot rematerialized
+    # tape held to the exact oracle over 8 extended rows
+    for level in ("1", "4"):
+        again, dt, _, verdicts = knob_proof(
+            ("H2T_SELFCHECK", level), lambda: create_proof(
+                params, pk, circ.advice, circ.instances, PoseidonTranscript()))
+        log(f"[knobs] sha256_gate_cli, H2T_SELFCHECK={level}: proof {dt:.3f} "
+            f"s (checks included), {'equal to' if again == proof else 'DIFFERENT FROM'} "
+            f"the proof above; verdicts {json.dumps(verdicts)} ({card})")
+        want = dict.fromkeys(selfcheck_labels(("H2T_SELFCHECK", level),
+                                              pk.vk.cs), "OK")
+        if again != proof or verdicts != want:
+            raise AssertionError(f"sha256_gate_cli: H2T_SELFCHECK={level}: "
+                                 f"{verdicts}")
     return launches
 
 
@@ -1526,35 +1565,30 @@ def sha256_gate_cli(device, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def x509_agg(device, card: str, snark_dir: str, work: str) -> dict:
-    """The reference CLI's `gen-x509-agg-proof` (k=20, lanes 8, na 8, nl 1,
-    fixed-vk mode, Poseidon transcript) over the four inner snarks in
-    `snark_dir` (the CLI chain's, phase 12, which equal the committed
-    build/*.proof), through the calls the CLI makes.  First the circuit as the JAX
-    package records it (`keep_identity_terms=True`): its record pass, the
-    k=20 SRS and both window tables, `sdk.gen_pk` (the vk held field for
-    field to build/x509_agg.pk.vk), both phases' advice columns held to
+    """The reference CLI's aggregation (k=20, lanes 8, na 8, nl 1,
+    fixed-vk mode) over the four inner snarks in `snark_dir` (the CLI
+    chain's, phase 12, which equal the committed build/*.proof).  First the
+    circuit as the JAX package records it (`keep_identity_terms=True`),
+    through the calls the CLI makes: its record pass, the k=20 SRS and
+    both window tables, `sdk.gen_pk` (the vk held field for field to
+    build/x509_agg.pk.vk), both phases' advice columns held to
     tests/data/aggregation_reference.npz at its tau, MockProver on that
     pass satisfied, and its accumulator failing the deferred pairing (the
-    identity commitments of the SHA-256 vks, circuits/agg_loader.py).  Then the port's circuit: record pass,
-    `sdk.gen_pk` (its constraint system that of build/x509_agg.pk.vk),
-    MockProver on the card, `sdk.gen_snark` with the default blinding seed
-    (its second record pass at the transcript's tau), `verify_aggregated`
-    on the proof and on a copy with one byte flipped.  Each step's wall
-    seconds and peak device memory; the proof's stages and blake2b.  Then
-    the EVM flow on the same key (`x509_agg_evm`), its files in `work`."""
+    identity commitments of the SHA-256 vks, circuits/agg_loader.py).  Each
+    step's wall seconds and peak device memory.  Then the port's circuit
+    through the CLI's three aggregation subcommands (`cli_aggregation`),
+    its files in `work`."""
     sys.path.insert(0, os.path.join(REPO, "tests", "data"))
     import make_aggregation_reference as ref
     from halo2_zkcert_tpu_torch import sdk
     from halo2_zkcert_tpu_torch.circuits.aggregation import (
-        InnerSnark, decode_accumulator, verify_aggregated)
+        InnerSnark, decode_accumulator)
     from halo2_zkcert_tpu_torch.circuits.x509_agg import \
         X509VerifierAggregationCircuit
     from halo2_zkcert_tpu_torch.ops import kernels
-    from halo2_zkcert_tpu_torch.plonk import prover, run_mock, setup
-    from halo2_zkcert_tpu_torch.plonk.assignment import BlindingRng
+    from halo2_zkcert_tpu_torch.plonk import run_mock, setup
     from halo2_zkcert_tpu_torch.plonk.keygen import vk_to_dict
     from halo2_zkcert_tpu_torch.plonk.mock import mock_challenges
-    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
     from halo2_zkcert_tpu_torch.utils import refcrypto as rc
     launches, steps = {}, {}
     torch.cuda.init()
@@ -1575,11 +1609,11 @@ def x509_agg(device, card: str, snark_dir: str, work: str) -> dict:
             f"its peak {peak:.2f} GB ({card})")
         return out
 
-    def record(label, keep):
+    def record(label):
         circ = step(f"{label}: circuit (record pass on the host)", None,
                     lambda: X509VerifierAggregationCircuit(
                         inner, k=ref.K_X509, lanes=ref.LANES_X509,
-                        na=ref.NA_X509, keep_identity_terms=keep))
+                        na=ref.NA_X509, keep_identity_terms=True))
         cs, rep = circ.data.cs, circ.rows_report()
         log(f"[x509_agg] {label}: record "
             f"{circ.composed.pass_seconds[0][0]:.3f} s, packing "
@@ -1618,7 +1652,7 @@ def x509_agg(device, card: str, snark_dir: str, work: str) -> dict:
 
     # the JAX package's circuit, held to build/x509_agg.pk.vk and to the
     # JAX package's columns
-    jcirc = record("JAX package's circuit", True)
+    jcirc = record("JAX package's circuit")
     params = step("srs and both window tables", "x509_agg_setup", srs)
     jpk = step("JAX package's circuit: keygen (sdk.gen_pk)", None,
                lambda: sdk.gen_pk(params, jcirc.data))
@@ -1668,59 +1702,150 @@ def x509_agg(device, card: str, snark_dir: str, work: str) -> dict:
         raise AssertionError(f"x509_agg: MockProver on the JAX package's "
                              f"circuit: {fails[:5]}")
     del jcirc, jfn
+    # the subcommands build and cache their own tables
+    for attr in ("_fb_lagrange", "_fb_monomial"):
+        params.__dict__.pop(attr, None)
     torch.cuda.empty_cache()
 
-    # the port's circuit: keygen, MockProver, proof, verify_aggregated
-    circ = record("port's circuit", False)
-    data = circ.data
-    pk = step("keygen (sdk.gen_pk)", "x509_agg_keygen",
-              lambda: sdk.gen_pk(params, data))
-    got = json.loads(json.dumps(vk_to_dict(pk.vk)))
-    same = {key: got[key] == sidecar[key] for key in keys[:4]}
-    differ = {key: sum(a != b for a, b in zip(got[key], sidecar[key]))
-              for key in keys[4:]}
-    log(f"[x509_agg] port's circuit: vk equal to build/x509_agg.pk.vk in "
-        f"{json.dumps(same, sort_keys=True)}; commitments that differ: "
-        f"{json.dumps(differ, sort_keys=True)}")
-    if not all(same.values()):
-        raise AssertionError(f"x509_agg: constraint system differs from "
-                             f"build/x509_agg.pk.vk's: {same}")
-    witness_fn, instances = circ.witness(device)
-    fails = step("run_mock (its phase-1 pass and the check on the card)",
-                 "x509_agg_mock",
-                 lambda: run_mock(data, witness_fn, instances,
-                                  raise_on_failure=False))
-    log(f"[mock] x509_agg: {fails[:5]}")
-    if fails:
-        raise AssertionError(f"x509_agg: MockProver: {fails[:5]}")
-    snark = step("proof (sdk.gen_snark: record pass, proof, verify_proof)",
-                 "x509_agg_proof",
-                 lambda: sdk.gen_snark(params, pk, witness_fn, instances,
-                                       rng=BlindingRng()))
-    proof = snark.proof
-    log(f"[prove] x509_agg: record {circ.composed.pass_seconds[-1][0]:.3f} "
-        f"s, packing {circ.composed.pass_seconds[-1][1]:.3f} s; stages "
-        f"{json.dumps(prover.LAST_STAGE_TIMES)}; {len(proof)} bytes, "
-        f"blake2b {rc.blake2b(proof, 32).hex()}")
-    ok = step("verify_aggregated", None, lambda: verify_aggregated(
-        params, pk.vk, instances, proof, PoseidonTranscript))
-    bad = bytearray(proof)
-    bad[len(bad) // 2] ^= 1
-    try:
-        rejected = not verify_aggregated(params, pk.vk, instances,
-                                         bytes(bad), PoseidonTranscript)
-    except (AssertionError, ValueError):
-        rejected = True                           # an undecodable point
-    (lx, ly), (rx, ry) = decode_accumulator(instances)
-    log(f"[verify] x509_agg: verify_aggregated accepts the proof: {ok}; "
-        f"rejects a flipped byte: {rejected}; accumulator lhs "
-        f"({lx:#x}, {ly:#x}), rhs ({rx:#x}, {ry:#x})")
-    if not (ok and rejected):
-        raise AssertionError("x509_agg: verify_aggregated check failed")
-    log(f"[x509_agg] steps (s, {card}): {json.dumps(steps)}")
-    del snark, witness_fn
-    torch.cuda.empty_cache()
-    launches.update(x509_agg_evm(device, card, params, pk, circ, work))
+    # the port's circuit, through the CLI's three aggregation subcommands
+    launches.update(cli_aggregation(device, card, params, snark_dir, work,
+                                    sidecar))
+    return launches
+
+
+def cli_aggregation(device, card: str, params, snark_dir: str, work: str,
+                    sidecar: dict) -> dict:
+    """Phase 10, the port's circuit, through `cli.main` on the card (k=20,
+    lanes 8, na 8, over the four snark files of `snark_dir`, its build and
+    params directories in `work`): gen-x509-agg-keys (the SRS set up and
+    written, keygen, the key file written: its constraint system that of
+    build/x509_agg.pk.vk), gen-x509-agg-proof and gen-x509-agg-evm-proof,
+    each reading that key file and making none.  The proof subcommand's
+    `cli.aggregation_step` is wrapped so that MockProver on the card runs
+    first on the circuit it recorded (its launches apart).  Its snark file
+    passes `verify_aggregated` and fails it with a byte flipped; the EVM
+    flow's checks are `x509_agg_evm`'s.  Each subcommand's wall seconds and
+    peak device memory; the key file's bytes, write and read seconds and
+    host memory."""
+    import make_aggregation_reference as ref
+    from halo2_zkcert_tpu_torch import cli, sdk
+    from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import prover, run_mock
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    build, params_dir = os.path.join(work, "build"), os.path.join(work, "params")
+    pk_path = os.path.join(build, "x509_agg.pk")
+    proof_path = os.path.join(work, "x509_agg.proof")
+    evm_path = os.path.join(work, "x509_agg_evm.proof")
+    sol_path = os.path.join(work, "X509AggregationVerifierFinal.sol")
+    common = ["--k", str(ref.K_X509), "--lanes", str(ref.LANES_X509),
+              "--na", str(ref.NA_X509), "--snarks"] + [
+        os.path.join(snark_dir, f"{stem}.proof") for stem in ref.X509_STEMS] + [
+        "--pk-path", pk_path, "--build-dir", build, "--params-path",
+        params_dir, "--device", str(device.type)]
+    launches, seconds, caught = {}, {}, {}
+    real_step, real_proof = cli.aggregation_step, sdk.create_proof
+
+    def step(cmd, params_, pk, circuit, proof_path_, sol_path_=None,
+             device_="cuda"):
+        """cli.aggregation_step, MockProver first for the proof."""
+        caught.update(vk=pk.vk, circuit_pass=circuit.composed.pass_seconds)
+        if cmd == "gen-x509-agg-proof":
+            witness_fn, instances = circuit.witness(device_)
+            kernels.reset_launches()
+            t0 = time.perf_counter()
+            fails = run_mock(circuit.data, witness_fn, instances,
+                             raise_on_failure=False)
+            torch.cuda.synchronize()
+            launches["x509_agg_mock"] = dict(kernels.launches)
+            log(f"[mock] x509_agg: {fails[:5]} in "
+                f"{time.perf_counter() - t0:.3f} s (its phase-1 pass and the "
+                f"check on the card; {card})")
+            if fails:
+                raise AssertionError(f"x509_agg: MockProver: {fails[:5]}")
+            del witness_fn
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        caught["out"] = real_step(cmd, params_, pk, circuit, proof_path_,
+                                  sol_path_, device_)
+        return caught["out"]
+
+    def proof_alone(*args, **kwargs):
+        """sdk.create_proof, its own device peak apart: the memory held
+        when it starts (key, SRS, window tables) and its peak."""
+        torch.cuda.synchronize()
+        caught["peak_before_proof"] = torch.cuda.max_memory_allocated(device)
+        held = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out = real_proof(*args, **kwargs)
+        torch.cuda.synchronize()
+        log(f"[x509_agg] create_proof: {held / 1e9:.2f} GB held on the card "
+            f"when it starts, {torch.cuda.max_memory_allocated(device) / 1e9:.2f}"
+            f" GB at its peak ({card})")
+        return out
+
+    def run(label, argv, path):
+        kernels.reset_launches()
+        torch.cuda.reset_peak_memory_stats(device)
+        caught["peak_before_proof"] = 0
+        with recorded_shapes() as rec:
+            t0 = time.perf_counter()
+            cli.main(argv + common)
+            torch.cuda.synchronize()
+            seconds[label] = time.perf_counter() - t0
+        launches[path] = dict(kernels.launches)
+        peak = max(caught["peak_before_proof"],
+                   torch.cuda.max_memory_allocated(device)) / 1e9
+        log(f"[shapes] {path}: {json.dumps(rec.shapes, sort_keys=True)}")
+        log(f"[x509_agg] {label}: {seconds[label]:.3f} s, device memory at "
+            f"the peak of its step (`cli.aggregation_step`, or all of it "
+            f"for the keys) {peak:.2f} GB ({card})")
+
+    with environ_set("PARAMS_DIR", params_dir), key_files(card) as keys:
+        run("gen-x509-agg-keys", ["gen-x509-agg-keys"], "x509_agg_keygen")
+        if keys.keygens != 1:
+            raise AssertionError(f"gen-x509-agg-keys: {keys.keygens} keygens")
+        with open(pk_path + ".vk") as f:
+            got = json.load(f)
+        same = {key: got[key] == sidecar[key] for key in
+                ("k", "num_instance", "accumulator_indices", "cs")}
+        differ = {key: sum(a != b for a, b in zip(got[key], sidecar[key]))
+                  for key in ("fixed_commitments", "permutation_commitments")}
+        log(f"[x509_agg] port's circuit: vk equal to build/x509_agg.pk.vk in "
+            f"{json.dumps(same, sort_keys=True)}; commitments that differ: "
+            f"{json.dumps(differ, sort_keys=True)}")
+        if not all(same.values()):
+            raise AssertionError(f"x509_agg: constraint system differs from "
+                                 f"build/x509_agg.pk.vk's: {same}")
+        keys.reads = keys.keygens = 0
+        cli.aggregation_step, sdk.create_proof = step, proof_alone
+        try:
+            run("gen-x509-agg-proof", ["gen-x509-agg-proof", "--proof-path",
+                                       proof_path], "x509_agg_proof")
+            keys.read_not_made("gen-x509-agg-proof", pk_path)
+            snark = sdk.Snark.read(proof_path)
+            log(f"[prove] x509_agg: record "
+                f"{caught['circuit_pass'][-1][0]:.3f} s, packing "
+                f"{caught['circuit_pass'][-1][1]:.3f} s; steps (s) "
+                f"{json.dumps(caught['out']['seconds'])}; stages "
+                f"{json.dumps(prover.LAST_STAGE_TIMES)}; {len(snark.proof)} "
+                f"bytes, blake2b {rc.blake2b(snark.proof, 32).hex()}")
+            check_snark("x509_agg (verify_aggregated)", params, snark,
+                        verify=lambda s: verify_aggregated(
+                            params, s.vk, s.instances, s.proof,
+                            PoseidonTranscript))
+            run("gen-x509-agg-evm-proof", ["gen-x509-agg-evm-proof",
+                                           "--proof-path", evm_path,
+                                           "--sol-path", sol_path],
+                "x509_agg_evm_proof")
+            keys.read_not_made("gen-x509-agg-evm-proof", pk_path)
+        finally:
+            cli.aggregation_step, sdk.create_proof = real_step, real_proof
+    log(f"[x509_agg] subcommands (s, {card}): {json.dumps(seconds)}")
+    log(f"[x509_agg] key file ({card}): {json.dumps(keys.files)}")
+    x509_agg_evm(card, params, caught["vk"], caught["out"],
+                 caught["circuit_pass"], evm_path, sol_path)
     return launches
 
 
@@ -1779,57 +1904,44 @@ def evm_artifacts(params, card: str) -> None:
         raise AssertionError(f"evm: the toy Keccak proof: {got}")
 
 
-def x509_agg_evm(device, card: str, params, pk, circ, work: str) -> dict:
-    """The reference CLI's `gen-x509-agg-evm-proof` after its key, through
-    the CLI's own step function (`cli.aggregation_step`) on phase 10's k=20
-    key: the Solidity verifier, the Keccak proof (its witness a fresh
-    phase-1 pass at the Keccak transcript's tau), `evm_verify`.  Then
-    `verify_aggregated` with the Keccak transcript, the gas and the
-    interpreter's seconds, `execute_ir`'s verdict, and the EVM's on a
-    flipped byte, a changed instance and a proof cut short by 32 bytes;
-    and the artifacts of the JAX package's vks (`evm_artifacts`)."""
-    from halo2_zkcert_tpu_torch import cli, evm
+def x509_agg_evm(card: str, params, vk, out: dict, circuit_pass: list,
+                 proof_path: str, sol_path: str) -> None:
+    """The checks of the CLI's `gen-x509-agg-evm-proof` on the port's k=20
+    key, from what its `cli.aggregation_step` returned (`out`: the
+    instances, the Keccak proof, its witness a fresh phase-1 pass at the
+    Keccak transcript's tau, the Solidity verifier and each step's
+    seconds) and the files it wrote: `verify_aggregated` with the Keccak
+    transcript, the gas and the interpreter's seconds, `execute_ir`'s
+    verdict, and the EVM's on a flipped byte, a changed instance and a
+    proof cut short by 32 bytes; then the artifacts of the JAX package's
+    vks (`evm_artifacts`)."""
+    from halo2_zkcert_tpu_torch import evm
     from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
-    from halo2_zkcert_tpu_torch.ops import kernels
     from halo2_zkcert_tpu_torch.plonk import prover
     from halo2_zkcert_tpu_torch.transcript import KeccakTranscript
     from halo2_zkcert_tpu_torch.utils import refcrypto as rc
-    proof_path = os.path.join(work, "x509_agg_evm.proof")
-    sol_path = os.path.join(work, "X509AggregationVerifierFinal.sol")
-    kernels.reset_launches()
-    torch.cuda.reset_peak_memory_stats(device)
-    with recorded_shapes() as rec:
-        t0 = time.perf_counter()
-        out = cli.aggregation_step("gen-x509-agg-evm-proof", params, pk, circ,
-                                   proof_path, sol_path, device)
-        torch.cuda.synchronize()
-        total = time.perf_counter() - t0
-    launches = {"x509_agg_evm_proof": dict(kernels.launches)}
-    peak = torch.cuda.max_memory_allocated(device) / 1e9
-    log(f"[shapes] x509_agg_evm_proof: {json.dumps(rec.shapes, sort_keys=True)}")
     instances, proof, sol = out["instances"], out["proof"], out["sol"]
     with open(proof_path, "rb") as f:
         on_disk = f.read() == proof
     with open(sol_path) as f:
         on_disk = on_disk and f.read() == sol
-    log(f"[x509_agg_evm] cli.aggregation_step: {total:.3f} s, steps (s) "
-        f"{json.dumps(out['seconds'])}, device memory at its peak "
-        f"{peak:.2f} GB ({card}); record "
-        f"{circ.composed.pass_seconds[-1][0]:.3f} s, packing "
-        f"{circ.composed.pass_seconds[-1][1]:.3f} s; proof stages "
-        f"{json.dumps(prover.LAST_STAGE_TIMES)}; {len(proof)} bytes, blake2b "
-        f"{rc.blake2b(proof, 32).hex()}; Solidity {len(sol)} chars, blake2b "
-        f"{rc.blake2b(sol.encode(), 32).hex()}; files as returned: {on_disk}")
+    log(f"[x509_agg_evm] gen-x509-agg-evm-proof: steps (s) "
+        f"{json.dumps(out['seconds'])} ({card}); record "
+        f"{circuit_pass[-1][0]:.3f} s, packing {circuit_pass[-1][1]:.3f} s; "
+        f"proof stages {json.dumps(prover.LAST_STAGE_TIMES)}; {len(proof)} "
+        f"bytes, blake2b {rc.blake2b(proof, 32).hex()}; Solidity {len(sol)} "
+        f"chars, blake2b {rc.blake2b(sol.encode(), 32).hex()}; files as "
+        f"returned: {on_disk}")
     rows = [len(c) for c in instances]
     t0 = time.perf_counter()
-    agg_ok = verify_aggregated(params, pk.vk, instances, proof,
+    agg_ok = verify_aggregated(params, vk, instances, proof,
                                KeccakTranscript)
     t_agg = time.perf_counter() - t0
-    art = evm.gen_evm_verifier_bytecode(params, pk.vk, rows)
+    art = evm.gen_evm_verifier_bytecode(params, vk, rows)
     t0 = time.perf_counter()
-    evm_ok, gas = evm.evm_verify_bytecode(params, pk.vk, instances, proof)
+    evm_ok, gas = evm.evm_verify_bytecode(params, vk, instances, proof)
     t_evm = time.perf_counter() - t0
-    ops, _ = evm.build_verifier_ir(pk.vk, rows)
+    ops, _ = evm.build_verifier_ir(vk, rows)
     t0 = time.perf_counter()
     ir_ok = evm.execute_ir(ops, instances, proof, params)
     t_ir = time.perf_counter() - t0
@@ -1853,7 +1965,7 @@ def x509_agg_evm(device, card: str, params, pk, circ, work: str) -> dict:
     verdicts = {}
     for what, (inst, bad) in tampered.items():
         t0 = time.perf_counter()
-        ok, gas_bad = evm.evm_verify_bytecode(params, pk.vk, inst, bad)
+        ok, gas_bad = evm.evm_verify_bytecode(params, vk, inst, bad)
         verdicts[what] = {"accepted": ok, "gas": gas_bad,
                           "s": round(time.perf_counter() - t0, 3)}
     log(f"[x509_agg_evm] the EVM on tampered inputs: "
@@ -1862,7 +1974,6 @@ def x509_agg_evm(device, card: str, params, pk, circ, work: str) -> dict:
         raise AssertionError(f"x509_agg_evm: a tampered input accepted: "
                              f"{verdicts}")
     evm_artifacts(params, card)
-    return launches
 
 
 def toy_accumulator(device, card: str) -> dict:
@@ -1910,6 +2021,102 @@ def toy_accumulator(device, card: str) -> dict:
     return launches
 
 
+def rss_bytes() -> int:
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+
+class PeakRss:
+    """The process's resident bytes on entry and at their peak inside,
+    sampled every 20 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+        self.before = self.peak = rss_bytes()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def _watch(self):
+        while not self._stop.wait(0.02):
+            self.peak = max(self.peak, rss_bytes())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, rss_bytes())
+
+
+class key_files:
+    """sdk's `write_pk`, `read_pk` and `keygen` wrapped for the block, as
+    `sdk.gen_pk` calls them: each key file written or read is timed, with
+    its bytes and the host's resident memory before and at its peak
+    (`.files`, logged); `.keygens` and `.reads` count the calls."""
+
+    def __init__(self, card: str):
+        self.card, self.files = card, {}
+        self.keygens = self.reads = 0
+
+    def __enter__(self):
+        from halo2_zkcert_tpu_torch import sdk
+        self.saved = {k: getattr(sdk, k) for k in ("write_pk", "read_pk",
+                                                   "keygen")}
+        write_pk, read_pk, keygen = (self.saved[k] for k in
+                                     ("write_pk", "read_pk", "keygen"))
+
+        def timed(what, path, fn):
+            with PeakRss() as m:
+                t0 = time.perf_counter()
+                out = fn()
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            size = os.path.getsize(path + ".npz")
+            rec = {"npz_bytes": size, "s": dt, "rss_before": m.before,
+                   "rss_peak": m.peak}
+            self.files.setdefault(os.path.basename(path), {})[what] = rec
+            log(f"[cli] key file {os.path.basename(path)}.npz: {size} bytes, "
+                f"{what} in {dt:.3f} s, host RSS {m.before / 1e9:.3f} GB "
+                f"before, {m.peak / 1e9:.3f} GB at its peak ({self.card})")
+            return out
+
+        def timed_write(pk, path, cache_digest=None):
+            raw = sum(getattr(pk, k).shape[0] for k in sdk.PK_ARRAYS) \
+                * pk.fixed_lagrange.shape[1] * 33 * 4
+            log(f"[cli] key file {os.path.basename(path)}.npz: {raw} bytes "
+                f"of limbs to write")
+            return timed("written", path,
+                         lambda: write_pk(pk, path, cache_digest))
+
+        def timed_read(path, device="cuda", cs=None):
+            self.reads += 1
+            return timed("read", path, lambda: read_pk(path, device, cs))
+
+        def counted_keygen(params, data):
+            self.keygens += 1
+            return keygen(params, data)
+
+        sdk.write_pk, sdk.read_pk, sdk.keygen = (timed_write, timed_read,
+                                                 counted_keygen)
+        return self
+
+    def __exit__(self, *exc):
+        from halo2_zkcert_tpu_torch import sdk
+        for k, fn in self.saved.items():
+            setattr(sdk, k, fn)
+
+    def read_not_made(self, label: str, path: str) -> None:
+        """Since the counts were zeroed: the key read once, no keygen."""
+        ok = self.reads == 1 and self.keygens == 0
+        log(f"[cli] {label}: the key at {os.path.basename(path)} read from "
+            f"its file ({self.reads} read), not made again ({self.keygens} "
+            f"keygen): {ok}")
+        if not ok:
+            raise AssertionError(f"{label}: key reads {self.reads}, keygens "
+                                 f"{self.keygens}")
+        self.reads = self.keygens = 0
+
+
 # the reference CLI's chain: (stem, signed certificate, issuer) of the RSA
 # links and (stem, certificate) of the SHA-256 links
 CLI_RSA = (("rsa_1", "example_cert_3.pem", "example_cert_2.pem"),
@@ -1923,31 +2130,29 @@ def cli_chain(device, card: str, work: str) -> dict:
     its build and params directories in `work`, the certificates from
     testdata/: gen-params --k 17; gen-rsa-keys and prove-rsa for both RSA
     links (the 4096-bit root's included); gen-zkevm-sha256-keys and
-    prove-zkevm-sha256 for both SHA-256 links.  Each snark file equals
-    build/<stem>.proof in its proof bytes, instances and vk, and each key's
-    vk build/<stem>.pk.vk in its commitments, constraint system and cache
-    digest (where that sidecar has one).  Each subcommand's wall seconds,
-    each key file's size and write seconds; the launch counts of each
-    subcommand."""
+    prove-zkevm-sha256 for both SHA-256 links; gen-unoptimized-sha256-keys
+    and prove-unoptimized-sha256 for the TBS of example_cert_3.pem at k=19.
+    Each snark file of the first four equals build/<stem>.proof in its
+    proof bytes, instances and vk, and each key's vk build/<stem>.pk.vk in
+    its commitments, constraint system and cache digest (where that sidecar
+    has one); the k=19 snark verifies, is rejected with a byte flipped,
+    and its instances are hashlib's digest.  Each prove subcommand reads
+    the key its keys subcommand wrote and makes none.  Each subcommand's
+    wall seconds, each key file's bytes, write and read seconds and host
+    memory (`key_files`); the launch counts of each subcommand."""
+    import hashlib
     from halo2_zkcert_tpu_torch import cli, sdk
-    from halo2_zkcert_tpu_torch.cert import extract_public_key, parse_pem
+    from halo2_zkcert_tpu_torch.cert import (extract_public_key,
+                                             extract_tbs_and_sig, parse_pem)
     from halo2_zkcert_tpu_torch.ops import kernels
     from halo2_zkcert_tpu_torch.plonk import prover
     from halo2_zkcert_tpu_torch.plonk.keygen import vk_to_dict
+    from halo2_zkcert_tpu_torch.plonk.kzg import gen_srs
     build, params_dir = os.path.join(work, "build"), os.path.join(work, "params")
     testdata = os.path.join(REPO, "testdata")
     common = ["--build-dir", build, "--params-path", params_dir,
               "--device", str(device.type)]
     launches, seconds = {}, {}
-    write_pk = sdk.write_pk
-
-    def timed_write_pk(pk, path, cache_digest=None):
-        t0 = time.perf_counter()
-        write_pk(pk, path, cache_digest)
-        dt = time.perf_counter() - t0
-        size = sum(os.path.getsize(path + ext) for ext in (".npz", ".vk"))
-        log(f"[cli] key file {os.path.basename(path)}.npz + .vk: {size} "
-            f"bytes, written in {dt:.3f} s ({card})")
 
     def run(label, argv, path=None):
         kernels.reset_launches()
@@ -1989,38 +2194,81 @@ def cli_chain(device, card: str, work: str) -> dict:
             raise AssertionError(f"cli: {stem} differs from the committed "
                                  f"artifacts: {same}")
 
-    with environ_set("PARAMS_DIR", params_dir):
-        sdk.write_pk = timed_write_pk
-        try:
-            run("gen-params", ["gen-params", "--k", "17"])
-            for stem, signed, issuer in CLI_RSA:
-                with open(os.path.join(testdata, issuer), "rb") as f:
-                    bits = extract_public_key(parse_pem(f.read())).bit_length()
-                log(f"[cli] {stem}: {signed} signed by {issuer}, a {bits}-bit "
-                    f"RSA key")
-                certs = ["--verify-cert-path", os.path.join(testdata, signed),
-                         "--issuer-cert-path", os.path.join(testdata, issuer),
-                         "--pk-path", os.path.join(build, f"{stem}.pk")]
-                run(f"gen-rsa-keys {stem}", ["gen-rsa-keys"] + certs,
-                    f"cli_{stem}_keygen")
-                run(f"prove-rsa {stem}", ["prove-rsa"] + certs + [
-                    "--proof-path", os.path.join(build, f"{stem}.proof")],
-                    f"cli_{stem}_proof")
-                held(stem)
-            for stem, pem in CLI_SHA:
-                args = ["--cert-path", os.path.join(testdata, pem),
-                        "--pk-path", os.path.join(build, f"{stem}.pk")]
-                run(f"gen-zkevm-sha256-keys {stem}",
-                    ["gen-zkevm-sha256-keys"] + args, f"cli_{stem}_keygen")
-                run(f"prove-zkevm-sha256 {stem}", ["prove-zkevm-sha256"]
-                    + args + ["--proof-path",
-                              os.path.join(build, f"{stem}.proof")],
-                    f"cli_{stem}_proof")
-                held(stem)
-        finally:
-            sdk.write_pk = write_pk
+    with environ_set("PARAMS_DIR", params_dir), key_files(card) as keys:
+        run("gen-params", ["gen-params", "--k", "17"])
+        for stem, signed, issuer in CLI_RSA:
+            with open(os.path.join(testdata, issuer), "rb") as f:
+                bits = extract_public_key(parse_pem(f.read())).bit_length()
+            log(f"[cli] {stem}: {signed} signed by {issuer}, a {bits}-bit "
+                f"RSA key")
+            pk_path = os.path.join(build, f"{stem}.pk")
+            certs = ["--verify-cert-path", os.path.join(testdata, signed),
+                     "--issuer-cert-path", os.path.join(testdata, issuer),
+                     "--pk-path", pk_path]
+            run(f"gen-rsa-keys {stem}", ["gen-rsa-keys"] + certs,
+                f"cli_{stem}_keygen")
+            keys.reads = keys.keygens = 0
+            run(f"prove-rsa {stem}", ["prove-rsa"] + certs + [
+                "--proof-path", os.path.join(build, f"{stem}.proof")],
+                f"cli_{stem}_proof")
+            keys.read_not_made(f"prove-rsa {stem}", pk_path)
+            held(stem)
+        for stem, pem in CLI_SHA:
+            args = ["--cert-path", os.path.join(testdata, pem),
+                    "--pk-path", os.path.join(build, f"{stem}.pk")]
+            run(f"gen-zkevm-sha256-keys {stem}",
+                ["gen-zkevm-sha256-keys"] + args, f"cli_{stem}_keygen")
+            keys.reads = keys.keygens = 0
+            run(f"prove-zkevm-sha256 {stem}", ["prove-zkevm-sha256"]
+                + args + ["--proof-path",
+                          os.path.join(build, f"{stem}.proof")],
+                f"cli_{stem}_proof")
+            keys.read_not_made(f"prove-zkevm-sha256 {stem}", args[-1])
+            held(stem)
+        # the gate-level SHA-256 of the 970-byte TBS at k=19
+        pem = os.path.join(testdata, "example_cert_3.pem")
+        pk_path = os.path.join(build, "unoptimized_sha256.pk")
+        proof_path = os.path.join(build, "unoptimized_sha256.proof")
+        gate = ["--cert-path", pem, "--k", "19", "--pk-path", pk_path]
+        run("gen-unoptimized-sha256-keys", ["gen-unoptimized-sha256-keys"]
+            + gate, "cli_gate_keygen")
+        keys.reads = keys.keygens = 0
+        run("prove-unoptimized-sha256", ["prove-unoptimized-sha256"] + gate
+            + ["--proof-path", proof_path], "cli_gate_proof")
+        keys.read_not_made("prove-unoptimized-sha256", pk_path)
+    with open(pem, "rb") as f:
+        tbs, _ = extract_tbs_and_sig(parse_pem(f.read()))
+    snark = sdk.Snark.read(proof_path)
+    log(f"[cli] unoptimized_sha256: {len(snark.proof)}-byte proof, stages "
+        f"{json.dumps(prover.LAST_STAGE_TIMES)}")
+    check_snark("cli unoptimized_sha256",
+                gen_srs(19, params_dir, device), snark,
+                snark.instances == [list(hashlib.sha256(tbs).digest())])
     log(f"[cli] subcommands (s, {card}): {json.dumps(seconds)}")
+    log(f"[cli] key files ({card}): {json.dumps(keys.files)}")
     return launches
+
+
+def check_snark(label: str, params, snark, instances_ok: bool = True,
+                verify=None) -> None:
+    """A snark file's proof verifies (`verify`, by default `verify_snark`)
+    and a copy with one byte flipped does not."""
+    from halo2_zkcert_tpu_torch import sdk
+    verify = verify or (lambda s: sdk.verify_snark(params, s))
+    t0 = time.perf_counter()
+    ok = verify(snark)
+    dt = time.perf_counter() - t0
+    bad = bytearray(snark.proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = not verify(sdk.Snark(snark.vk, snark.instances,
+                                        bytes(bad)))
+    except (AssertionError, ValueError):
+        rejected = True                           # an undecodable point
+    log(f"[verify] {label}: accepts the proof: {ok} ({dt:.3f} s); rejects a "
+        f"flipped byte: {rejected}; instances as expected: {instances_ok}")
+    if not (ok and rejected and instances_ok):
+        raise AssertionError(f"{label}: verifier check failed")
 
 
 # ---------------------------------------------------------------------------
@@ -2305,6 +2553,143 @@ def check_sharded(card: str, params_dir: str) -> dict:
     return res[0]["launches"]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the prover's debugging knobs
+# ---------------------------------------------------------------------------
+
+# (knob, value) of each RSA k=17 proof phase 15 makes
+KNOB_PROOFS = (("H2T_SELFCHECK", "1"), ("H2T_SELFCHECK", "2"),
+               ("H2T_SELFCHECK", "3"), ("H2T_SELFCHECK", "4"),
+               ("H2T_EVAL_MODE", "coeff"))
+# the knob proofs whose launch counts are kept, and their paths' names
+KNOB_PATHS = {("H2T_SELFCHECK", "3"): "selfcheck3_proof",
+              ("H2T_EVAL_MODE", "coeff"): "eval_coeff_proof"}
+Z_ROW = 5          # a row of the first permutation Z before u_row
+K4_ROW = 20        # an extended row inside the level-4 window [17, 25)
+
+
+def selfcheck_labels(knob, cs) -> set:
+    """The verdicts a proof of constraint system `cs` must report under
+    `knob` (name, value): level 1's identity at x, level 2's host
+    evaluations, level 3's recurrence of every Z, level 4's and 5's window;
+    none for the other knobs."""
+    level = knob[1] if knob[0] == "H2T_SELFCHECK" else None
+    if not level:
+        return set()
+    labels = {"quotient identity"}
+    if level == "2":
+        labels |= {"bary(advice0, x)", "bary(sigma0, x)", "bary(h, x)",
+                   "horner(h_collapsed, x)"}
+    if level == "3":
+        chunks = cs.num_permutation_chunks()
+        labels |= {f"perm_z{c} recurrence" for c in range(chunks)}
+        labels |= {f"perm_z{c} chain start" for c in range(1, chunks)}
+        labels |= {"perm_z last == 1 at u_row"} if chunks else set()
+        labels |= {f"lookup{i}_z recurrence" for i in range(len(cs.lookups))}
+    if level in ("4", "5"):
+        labels.add("quotient window")
+    return labels
+
+
+def knob_proof(knob, fn) -> tuple:
+    """fn() with the environment's `knob` (name, value) set: its result,
+    wall seconds, the launch counts and the prover's self-check verdicts."""
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import prover
+    kernels.reset_launches()
+    with environ_set(*knob):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    return out, dt, dict(kernels.launches), dict(prover.LAST_SELFCHECK)
+
+
+class corrupted:
+    """A fault patched into plonk/prover.py for the block: "z" adds one to
+    row Z_ROW of the first permutation Z before its commitment (around
+    `_grand_products`), "k4" adds one to row K4_ROW of K4's output (around
+    `quotient_forest`)."""
+
+    def __init__(self, what: str):
+        self.what = what
+
+    def __enter__(self):
+        from halo2_zkcert_tpu_torch.ops import field
+        from halo2_zkcert_tpu_torch.ops.field import FR
+        from halo2_zkcert_tpu_torch.plonk import prover
+        name = {"z": "_grand_products", "k4": "quotient_forest"}[self.what]
+        real = getattr(prover, name)
+
+        def bump(t, row):
+            t = t.clone()
+            t[row] = field.add(FR, t[row], field.one(t.device))
+            return t
+
+        def hooked(*args, **kwargs):
+            out = real(*args, **kwargs)
+            if self.what == "k4":
+                return bump(out, K4_ROW)
+            zs, num, den = out
+            return [bump(zs[0], Z_ROW)] + zs[1:], num, den
+
+        self.saved = (prover, name, real)
+        setattr(prover, name, hooked)
+
+    def __exit__(self, *exc):
+        setattr(*self.saved)
+
+
+def check_knobs(device, link, card: str) -> dict:
+    """Phase 15: the RSA k=17 proof on the fixed base under each of
+    KNOB_PROOFS equals build/rsa_1.proof with every self-check verdict OK
+    (level 3's residuals on K1, level 4's window an exact oracle of K4,
+    coefficient-form evaluations through ntt.cu); then three runs with a
+    fault patched in (`corrupted`): a Z value at level 1 (the identity at
+    x: MISMATCH) and at level 3 (the recurrence: VIOLATED), K4's output at
+    level 4 (the window: MISMATCH).  Returns the launch counts of the
+    level-3 and the coefficient-form proofs."""
+    from halo2_zkcert_tpu_torch.bench import prove_rsa
+    from halo2_zkcert_tpu_torch.sdk import Snark
+    ref = Snark.read(os.path.join(REPO, "build", "rsa_1.proof"))
+    params, circuit, pk, sig, digest = link
+
+    def rsa_proof():
+        return prove_rsa(params, circuit, pk, sig, digest, device)[0]
+
+    launches = {}
+    for knob in KNOB_PROOFS:
+        proof, dt, counts, verdicts = knob_proof(knob, rsa_proof)
+        same = proof == ref.proof
+        ok = verdicts == dict.fromkeys(selfcheck_labels(knob, pk.vk.cs),
+                                       "OK")
+        log(f"[knobs] {knob[0]}={knob[1]}: proof {dt:.3f} s "
+            f"(checks included), {'equal to' if same else 'DIFFERENT FROM'} "
+            f"build/rsa_1.proof; verdicts {json.dumps(verdicts)} ({card})")
+        if not (same and ok):
+            raise AssertionError(f"knobs: {knob}: bytes equal {same}, "
+                                 f"verdicts {verdicts}")
+        if knob in KNOB_PATHS:
+            launches[KNOB_PATHS[knob]] = counts
+    for what, level, want in (
+            ("z", "1", {"quotient identity": "MISMATCH"}),
+            ("z", "3", {"perm_z0 recurrence": "VIOLATED",
+                        "quotient identity": "MISMATCH"}),
+            ("k4", "4", {"quotient window": "MISMATCH"})):
+        with corrupted(what):
+            _, _, _, verdicts = knob_proof(("H2T_SELFCHECK", level), rsa_proof)
+        wrong = {k: v for k, v in verdicts.items() if v != want.get(k, "OK")
+                 and not (what == "k4" and k == "quotient identity")}
+        fault = {"z": "a Z value", "k4": "K4's output"}[what]
+        log(f"[knobs] a fault in {fault} at level {level}: verdicts "
+            f"{json.dumps(verdicts)}")
+        labels = selfcheck_labels(("H2T_SELFCHECK", level), pk.vk.cs)
+        if wrong or not set(want) <= labels or set(verdicts) != labels:
+            raise AssertionError(f"knobs: fault {what} at level {level}: "
+                                 f"{verdicts}, wanted {want}")
+    return launches
+
+
 def check_launches(launches: dict) -> None:
     """The launch counts each driven path must keep (module docstring)."""
     fb = launches["fixed_base_proof"]
@@ -2357,7 +2742,38 @@ def check_launches(launches: dict) -> None:
                             if k != "point_windows"))
 
     mxu, sharded = launches["ntt_mxu_proof"], launches["sharded_proof"]
+    sc3, coeff = launches["selfcheck3_proof"], launches["eval_coeff_proof"]
+    gate_key, gate_cli = launches["cli_gate_keygen"], launches["cli_gate_proof"]
+
+    def chains_but_windows(p, windows, fixed_mul=0):
+        """No chain kernel but up to `windows` point_windows (a window
+        table built at its first use) and `fixed_mul` point_fixed_mul (an
+        SRS set up)."""
+        return (p.get("point_windows", 0) <= windows
+                and p.get("point_fixed_mul", 0) <= fixed_mul
+                and not any(p.get(k, 0) for k in chains
+                            if k not in ("point_windows", "point_fixed_mul")))
+
     rules = (
+        ("H2T_SELFCHECK=3's proof: more field_binop.sub and .mul than the "
+         "fixed-base proof (the recurrences' residuals on K1)",
+         sc3.get("field_binop.sub", 0) > fb.get("field_binop.sub", 0)
+         and sc3.get("field_binop.mul", 0) > fb.get("field_binop.mul", 0)),
+        ("H2T_EVAL_MODE=coeff's proof: more ntt launches than the fixed-base "
+         "proof (the queried columns' inverse transform)",
+         coeff.get("ntt", 0) > fb.get("ntt", 0)),
+        ("gen-unoptimized-sha256-keys (k=19): field_binop.mul, ntt, "
+         "scan_madd; at most one point_fixed_mul (the SRS) and 4 "
+         "point_windows (the Lagrange table), no other chain kernel",
+         gate_key.get("field_binop.mul", 0) and gate_key.get("ntt", 0)
+         and gate_key.get("scan_madd", 0)
+         and chains_but_windows(gate_key, 4, 1)),
+        ("prove-unoptimized-sha256 (k=19): one quotient_forest, ntt, "
+         "scan_madd, field_scan; at most 4 point_windows (the monomial "
+         "table), no other chain kernel",
+         gate_cli.get("quotient_forest", 0) == 1 and gate_cli.get("ntt", 0)
+         and gate_cli.get("scan_madd", 0) and gate_cli.get("field_scan", 0)
+         and chains_but_windows(gate_cli, 4)),
         ("the four-step proof (H2T_NTT_MXU=1): ntt_mxu, no ntt, one "
          "quotient_forest",
          mxu.get("ntt_mxu", 0) > 0 and mxu.get("ntt", 0) == 0
@@ -2369,9 +2785,10 @@ def check_launches(launches: dict) -> None:
          and sharded.get("ntt", 0) > 0
          and sharded.get("quotient_forest", 0) == 1
          and not sharded.get("ntt_mxu", 0)),
-        ("the k=20 aggregation's Keccak proof (the EVM flow): one "
-         "quotient_forest, ntt, scan_madd, field_scan, field_row_sum, "
-         "point_scan, point_row_sum, no chain kernel",
+        ("the k=20 aggregation's Keccak proof (gen-x509-agg-evm-proof's "
+         "step, both tables read from the cache): one quotient_forest, ntt, "
+         "scan_madd, field_scan, field_row_sum, point_scan, point_row_sum, "
+         "no chain kernel",
          agg_evm.get("quotient_forest", 0) == 1 and agg_evm.get("ntt", 0)
          and agg_evm.get("scan_madd", 0) and agg_evm.get("field_scan", 0)
          and agg_evm.get("field_row_sum", 0) and agg_evm.get("point_scan", 0)
@@ -2398,19 +2815,20 @@ def check_launches(launches: dict) -> None:
         ("the k=19 gate-level proof: ntt, scan_madd, field_scan",
          cli.get("ntt", 0) and cli.get("scan_madd", 0)
          and cli.get("field_scan", 0)),
-        ("the k=20 aggregation proof: one quotient_forest, ntt, scan_madd, "
-         "field_scan, field_row_sum, point_scan, point_row_sum, no chain "
-         "kernel",
+        ("the k=20 aggregation proof (gen-x509-agg-proof's step): one "
+         "quotient_forest, ntt, scan_madd, field_scan, field_row_sum, "
+         "point_scan, point_row_sum; at most 8 point_windows (the monomial "
+         "table), no other chain kernel",
          agg.get("quotient_forest", 0) == 1 and agg.get("ntt", 0)
          and agg.get("scan_madd", 0) and agg.get("field_scan", 0)
          and agg.get("field_row_sum", 0) and agg.get("point_scan", 0)
-         and agg.get("point_row_sum", 0)
-         and not any(agg.get(k, 0) for k in chains)),
-        ("the k=20 aggregation keygen: field_binop.mul (sigma), ntt, "
-         "scan_madd, no chain kernel",
+         and agg.get("point_row_sum", 0) and chains_but_windows(agg, 8)),
+        ("the k=20 aggregation keygen (gen-x509-agg-keys): field_binop.mul "
+         "(sigma), ntt, scan_madd; at most one point_fixed_mul (the SRS) "
+         "and 8 point_windows (the Lagrange table), no other chain kernel",
          agg_key.get("field_binop.mul", 0) and agg_key.get("ntt", 0)
          and agg_key.get("scan_madd", 0)
-         and not any(agg_key.get(k, 0) for k in chains)),
+         and chains_but_windows(agg_key, 8, 1)),
         ("the k=20 SRS and tables: point_fixed_mul, 16 point_windows "
          "(2^17-point slices of both bases; one more where G's table is "
          "not yet cached), no point_double",
@@ -2519,6 +2937,7 @@ def main() -> int:
             f"{r['int8_bound_ms']:.4f}, reduction {r['reduction_bound_ms']:.4f}"
             f" ({r['reduction_ms_at_measured_rate']:.4f} at the measured "
             f"product rate); {card})")
+    launches.update(check_knobs(device, link, card))
     torch.cuda.empty_cache()
     launches["sharded_proof"] = check_sharded(card, params_dir)
     launches["keygen_rsa"] = check_keygen_rsa(device, params, circuit, card)
@@ -2582,7 +3001,9 @@ def main() -> int:
              "sha256_gate_cli_proof", "cli_rsa_1_keygen", "cli_rsa_1_proof",
              "cli_rsa_2_keygen", "cli_rsa_2_proof", "cli_sha256_1_keygen",
              "cli_sha256_1_proof", "cli_sha256_2_keygen",
-             "cli_sha256_2_proof", "x509_agg_setup", "x509_agg_keygen",
+             "cli_sha256_2_proof", "cli_gate_keygen", "cli_gate_proof",
+             "selfcheck3_proof", "eval_coeff_proof",
+             "x509_agg_setup", "x509_agg_keygen",
              "x509_agg_mock", "x509_agg_proof", "x509_agg_evm_proof",
              "acc_toy_good_proof", "acc_toy_bad_proof")
     for path in paths:

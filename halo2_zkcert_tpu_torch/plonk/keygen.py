@@ -13,6 +13,8 @@ across with `from_reference_pk` (sdk.read_pk).
 """
 from __future__ import annotations
 
+import os
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -100,9 +102,9 @@ def vk_from_dict(d: dict) -> VerifyingKey:
     )
 
 
-def _columns(arr, device) -> torch.Tensor:
-    """(m, n, 33) resident limbs (numpy or tensor) -> (m, n, 8) canonical,
-    converted on `device` one column at a time."""
+def resident_columns(arr, device) -> torch.Tensor:
+    """(m, n, 33) resident limbs (numpy or tensor, any integer type) ->
+    (m, n, 8) canonical, converted on `device` one column at a time."""
     arr = np.asarray(arr)
     out = torch.empty(arr.shape[:2] + (8,), dtype=torch.int32, device=device)
     for i in range(arr.shape[0]):
@@ -111,33 +113,41 @@ def _columns(arr, device) -> torch.Tensor:
     return out
 
 
+def vk_with_cs(vk_dict: dict, cs: ConstraintSystem | None = None
+               ) -> VerifyingKey:
+    """The vk of a sidecar dict; `cs`, when given, replaces the decoded
+    constraint system (a live circuit's, whose digest must match)."""
+    vk = vk_from_dict(vk_dict)
+    if cs is not None:
+        assert cs.digest_bytes() == vk.cs.digest_bytes(), "cs digest mismatch"
+        vk.cs = cs
+    return vk
+
+
 def from_reference_pk(arrays, vk_dict: dict, device="cuda",
                       cs: ConstraintSystem | None = None) -> ProvingKey:
     """Carry the JAX package's proving key across.
 
     `arrays` maps fixed_lagrange, fixed_coeff, sigma_lagrange, sigma_coeff
     to (m, n, 33) int32 resident limbs (the JAX pk's device arrays, or the
-    arrays of a saved `.pk.npz`); `vk_dict` is its vk sidecar.  `cs`, when
-    given, replaces the decoded constraint system (a live circuit's, whose
-    digest must match)."""
-    vk = vk_from_dict(vk_dict)
-    if cs is not None:
-        assert cs.digest_bytes() == vk.cs.digest_bytes(), "cs digest mismatch"
-        vk.cs = cs
+    arrays of a saved `.pk.npz`); `vk_dict` is its vk sidecar; `cs` as
+    `vk_with_cs` takes it."""
     return ProvingKey(
-        vk=vk,
-        fixed_lagrange=_columns(arrays["fixed_lagrange"], device),
-        fixed_coeff=_columns(arrays["fixed_coeff"], device),
-        sigma_lagrange=_columns(arrays["sigma_lagrange"], device),
-        sigma_coeff=_columns(arrays["sigma_coeff"], device),
+        vk=vk_with_cs(vk_dict, cs),
+        fixed_lagrange=resident_columns(arrays["fixed_lagrange"], device),
+        fixed_coeff=resident_columns(arrays["fixed_coeff"], device),
+        sigma_lagrange=resident_columns(arrays["sigma_lagrange"], device),
+        sigma_coeff=resident_columns(arrays["sigma_coeff"], device),
     )
 
 
-def sigma_columns(data: CircuitData, dom: Domain) -> torch.Tensor:
+def sigma_columns(data: CircuitData, dom: Domain,
+                  mapping: np.ndarray | None = None) -> torch.Tensor:
     """(m, n, 8) sigma columns on the domain's device: at (c, r) the value
     delta^c' omega^r' of the next cell (c', r') of the copy cycle holding
-    (c, r) (`permutation_mapping`)."""
-    mapping = permutation_mapping(data)
+    (c, r) (`permutation_mapping`, or `mapping` when given)."""
+    if mapping is None:
+        mapping = permutation_mapping(data)
     m, dev = mapping.shape[0], dom.device
     if not m:
         return torch.zeros((0, dom.n, 8), dtype=torch.int32, device=dev)
@@ -149,25 +159,45 @@ def sigma_columns(data: CircuitData, dom: Domain) -> torch.Tensor:
 
 
 def keygen(params: ParamsKZG, data: CircuitData) -> ProvingKey:
-    """The proving key of `data` on the SRS's device."""
+    """The proving key of `data` on the SRS's device; with H2T_PROFILE set,
+    the reference's `[keygen] <stage>: <s>` ticks."""
     assert params.k == data.k, "SRS size must match circuit k"
     device = params.g.device
     dom = Domain(data.k, data.cs.quotient_degree, str(device))
+    profile = bool(os.environ.get("H2T_PROFILE"))
+    t_last = [time.perf_counter()]
+
+    def tick(stage):
+        if profile:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            t = time.perf_counter()
+            print(f"  [keygen] {stage}: {t - t_last[0]:.3f}s", flush=True)
+            t_last[0] = t
+
     # the fixed-base tables first, before the key's columns take memory
     if _fb_wanted(params.n, device):
         params.fixed_base(lagrange=True)
+    tick("fb tables")
     fixed_lag = data.fixed_tensor(device)
-    sigma_lag = sigma_columns(data, dom)
+    tick("fixed limbs")
+    mapping = permutation_mapping(data)
+    tick("permutation mapping")
+    sigma_lag = sigma_columns(data, dom, mapping)
+    tick("sigma columns")
     vk = VerifyingKey(
         k=data.k, cs=data.cs,
         fixed_commitments=commit_many_lagrange(params, fixed_lag),
         permutation_commitments=commit_many_lagrange(params, sigma_lag),
         num_instance=list(data.num_instance),
         accumulator_indices=data.accumulator_indices)
+    tick("commits")
 
     def coeff(cols):
         return dom.lagrange_to_coeff(cols) if cols.shape[0] else cols.clone()
 
-    return ProvingKey(vk=vk, fixed_lagrange=fixed_lag,
-                      fixed_coeff=coeff(fixed_lag), sigma_lagrange=sigma_lag,
-                      sigma_coeff=coeff(sigma_lag))
+    pk = ProvingKey(vk=vk, fixed_lagrange=fixed_lag,
+                    fixed_coeff=coeff(fixed_lag), sigma_lagrange=sigma_lag,
+                    sigma_coeff=coeff(sigma_lag))
+    tick("lag2coeff+u8")
+    return pk

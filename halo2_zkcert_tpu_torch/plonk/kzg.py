@@ -20,7 +20,9 @@ built lazily and cached beside the SRS file; everything else (short
 polynomials, small domains, CPU tensors) takes the variable-base Pippenger
 of ops/msm.py.  Two environment knobs, read at each call: H2T_FB_MSM
 (`auto`, `0` = always variable base, `1` = always fixed base) and
-H2T_FB_BOUNDED=0 (ignore the value-bit hints of bounded columns).
+H2T_FB_BOUNDED=0 (ignore the value-bit hints of bounded columns).  With
+H2T_PROFILE2 set, each batch of commitments prints the reference's
+`[commit] <tag> x<columns>: <s>` line.
 
 While a prover mesh of more than one rank is active (parallel/context.py),
 commitments take no fixed-base tables, and those whose base length divides
@@ -30,6 +32,7 @@ by the mesh size go through parallel/msm_sharded.py, as the JAX package's
 from __future__ import annotations
 
 import os
+import time
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -218,6 +221,18 @@ def commit_path(params: ParamsKZG) -> str:
             else "variable_base")
 
 
+def _commit_timer(tag: str, cols: torch.Tensor, fn) -> list:
+    """fn(), with H2T_PROFILE2 set its wall seconds printed as the
+    reference's `[commit] <tag> x<columns>` line."""
+    if not os.environ.get("H2T_PROFILE2"):
+        return fn()
+    t0 = time.perf_counter()
+    out = fn()                          # host ints: the device is done
+    print(f"    [commit] {tag} x{cols.shape[0]}: "
+          f"{time.perf_counter() - t0:.3f}s", flush=True)
+    return out
+
+
 def commit_many_lagrange(params: ParamsKZG, cols, value_bits=None,
                          blind_lo=None) -> list:
     """Commit Lagrange-basis columns (m, n, 8) -> [(x, y)] ints.
@@ -229,9 +244,12 @@ def commit_many_lagrange(params: ParamsKZG, cols, value_bits=None,
     if cols is None:
         return []
     if _fb_wanted(params.n, cols.device):
-        return _fb_commit(params.fixed_base(lagrange=True), cols, value_bits,
-                          blind_lo)
-    return _commit(params.g_lagrange, cols)
+        return _commit_timer(
+            f"lag fb vb={value_bits}", cols,
+            lambda: _fb_commit(params.fixed_base(lagrange=True), cols,
+                               value_bits, blind_lo))
+    return _commit_timer("lag vb", cols,
+                         lambda: _commit(params.g_lagrange, cols))
 
 
 def commit_many(params: ParamsKZG, polys) -> list:
@@ -241,5 +259,8 @@ def commit_many(params: ParamsKZG, polys) -> list:
         return []
     deg = polys.shape[1]
     if deg == params.n and _fb_wanted(params.n, polys.device):
-        return _fb_commit(params.fixed_base(lagrange=False), polys)
-    return _commit(params.g[:deg], polys)
+        return _commit_timer(
+            "mono fb", polys,
+            lambda: _fb_commit(params.fixed_base(lagrange=False), polys))
+    return _commit_timer("mono vb", polys,
+                         lambda: _commit(params.g[:deg], polys))

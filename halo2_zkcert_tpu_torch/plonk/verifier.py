@@ -39,6 +39,106 @@ def _barycentric_eval(values: list, n: int, omega: int, x: int) -> int:
     return zh * n_inv % rc.FR * acc % rc.FR
 
 
+def expected_h(csys, dom, instances: list, challenges: dict, theta: int,
+               beta: int, gamma: int, y: int, x: int, ev) -> int:
+    """The verifier's h(x): every gate, permutation and lookup constraint
+    at x, folded with y and divided by x^n - 1.  `ev(name, point)` is the
+    claimed evaluation of the multiopen's polynomial `name` (advice{i},
+    fixed{i}, sigma{i}, perm_z{c}, lookup{i}_{z,a,s}) at `point`; the
+    instances are evaluated here (they are not committed)."""
+    n = dom.n
+    u_row = n - csys.blinding_factors() - 1
+    chunk_len = csys.permutation_chunk_len()
+    num_chunks = csys.num_permutation_chunks()
+    xn = pow(x, n, rc.FR)
+    x_next = dom.rotate_omega(x, 1)
+    x_prev = dom.rotate_omega(x, -1)
+    x_last = dom.rotate_omega(x, u_row)
+
+    def instance_eval(i: int, rot: int) -> int:
+        return _barycentric_eval(instances[i], n, dom.omega,
+                                 dom.rotate_omega(x, rot))
+
+    adv_map = {q: ev(f"advice{q[0]}", dom.rotate_omega(x, q[1]))
+               for q in csys.advice_queries}
+    fix_map = {q: ev(f"fixed{q[0]}", dom.rotate_omega(x, q[1]))
+               for q in csys.fixed_queries}
+
+    def eval_expr(e: ex.Expr) -> int:
+        return ex.evaluate(
+            e,
+            constant=lambda v: v % rc.FR,
+            fixed=lambda i, r: fix_map[(i, r)],
+            advice=lambda i, r: adv_map[(i, r)],
+            instance=instance_eval,
+            challenge=lambda i: challenges[i],
+            add=lambda a, b: (a + b) % rc.FR,
+            mul=lambda a, b: a * b % rc.FR,
+            scale=lambda a, s: a * s % rc.FR,
+        )
+
+    # l_0, l_last, l_blind at x
+    l0 = dom.l_i_range(x, xn, [0])[0]
+    l_last = dom.l_i_range(x, xn, [u_row])[0]
+    l_blind = sum(dom.l_i_range(x, xn, range(u_row + 1, n))) % rc.FR
+    active = (1 - l_last - l_blind) % rc.FR
+
+    exprs = [eval_expr(g) for _, g in csys.gates]
+
+    # permutation constraints (same order as prover.py)
+    if num_chunks:
+        exprs.append(l0 * (1 - ev("perm_z0", x)) % rc.FR)
+        zl = ev(f"perm_z{num_chunks - 1}", x)
+        exprs.append(l_last * (zl * zl % rc.FR - zl) % rc.FR)
+        for c in range(1, num_chunks):
+            exprs.append(l0 * (ev(f"perm_z{c}", x)
+                               - ev(f"perm_z{c - 1}", x_last)) % rc.FR)
+        for ci in range(num_chunks):
+            chunk = csys.permutation_columns[ci * chunk_len:(ci + 1) * chunk_len]
+            left = ev(f"perm_z{ci}", x_next)
+            right = ev(f"perm_z{ci}", x)
+            for pos, col in enumerate(chunk):
+                gpos = ci * chunk_len + pos
+                if col.kind == ADVICE:
+                    v = adv_map[(col.index, 0)]
+                elif col.kind == FIXED:
+                    v = fix_map[(col.index, 0)]
+                else:
+                    v = instance_eval(col.index, 0)
+                sig = ev(f"sigma{gpos}", x)
+                left = left * ((v + beta * sig + gamma) % rc.FR) % rc.FR
+                right = right * ((v + beta * pow(DELTA, gpos, rc.FR) % rc.FR * x
+                                  + gamma) % rc.FR) % rc.FR
+            exprs.append(active * ((left - right) % rc.FR) % rc.FR)
+
+    # lookup constraints
+    for li, lk in enumerate(csys.lookups):
+        a_comp = 0
+        for p_in, _ in lk.pairs:
+            a_comp = (a_comp * theta + eval_expr(p_in)) % rc.FR
+        s_comp = 0
+        for _, p_tab in lk.pairs:
+            s_comp = (s_comp * theta + eval_expr(p_tab)) % rc.FR
+        z, zn = ev(f"lookup{li}_z", x), ev(f"lookup{li}_z", x_next)
+        a_, ap = ev(f"lookup{li}_a", x), ev(f"lookup{li}_a", x_prev)
+        s_ = ev(f"lookup{li}_s", x)
+        exprs.append(l0 * (1 - z) % rc.FR)
+        exprs.append(l_last * (z * z % rc.FR - z) % rc.FR)
+        lhs = zn * ((a_ + beta) % rc.FR) % rc.FR * ((s_ + gamma) % rc.FR) \
+            % rc.FR
+        rhs = z * ((a_comp + beta) % rc.FR) % rc.FR \
+            * ((s_comp + gamma) % rc.FR) % rc.FR
+        exprs.append(active * ((lhs - rhs) % rc.FR) % rc.FR)
+        exprs.append(l0 * ((a_ - s_) % rc.FR) % rc.FR)
+        exprs.append(active * ((a_ - s_) % rc.FR) * ((a_ - ap) % rc.FR)
+                     % rc.FR)
+
+    h_eval = 0
+    for e in exprs:
+        h_eval = (h_eval * y + e) % rc.FR
+    return h_eval * rc.finv((xn - 1) % rc.FR, rc.FR) % rc.FR
+
+
 def verify_proof(params, vk: VerifyingKey, instances: list, proof: bytes,
                  transcript_cls) -> bool:
     csys = vk.cs
@@ -46,7 +146,6 @@ def verify_proof(params, vk: VerifyingKey, instances: list, proof: bytes,
     n = vk.n
     bf = csys.blinding_factors()
     u_row = n - bf - 1
-    chunk_len = csys.permutation_chunk_len()
     num_chunks = csys.num_permutation_chunks()
     num_pieces = csys.quotient_degree
 
@@ -99,93 +198,6 @@ def verify_proof(params, vk: VerifyingKey, instances: list, proof: bytes,
             "s": t.read_scalar(),
         })
 
-    # ---- instance evals (verifier-computed; instances are not committed) ----
-    def instance_eval(i: int, rot: int) -> int:
-        pt = dom.rotate_omega(x, rot)
-        return _barycentric_eval(instances[i], n, dom.omega, pt)
-
-    # ---- gate / argument evaluation at x -------------------------------------
-    adv_map = {q: advice_evals[j] for j, q in enumerate(csys.advice_queries)}
-    fix_map = {q: fixed_evals[j] for j, q in enumerate(csys.fixed_queries)}
-
-    def eval_expr(e: ex.Expr) -> int:
-        return ex.evaluate(
-            e,
-            constant=lambda v: v % rc.FR,
-            fixed=lambda i, r: fix_map[(i, r)],
-            advice=lambda i, r: adv_map[(i, r)],
-            instance=instance_eval,
-            challenge=lambda i: challenges[i],
-            add=lambda a, b: (a + b) % rc.FR,
-            mul=lambda a, b: a * b % rc.FR,
-            scale=lambda a, s: a * s % rc.FR,
-        )
-
-    # l_0, l_last, l_blind at x
-    l0 = dom.l_i_range(x, xn, [0])[0]
-    l_last = dom.l_i_range(x, xn, [u_row])[0]
-    l_blind = sum(dom.l_i_range(x, xn, range(u_row + 1, n))) % rc.FR
-    active = (1 - l_last - l_blind) % rc.FR
-
-    exprs = []
-    for _, g in csys.gates:
-        exprs.append(eval_expr(g))
-
-    # permutation constraints (same order as prover.py)
-    if num_chunks:
-        exprs.append(l0 * (1 - perm_z[0]["x"]) % rc.FR)
-        zl = perm_z[-1]["x"]
-        exprs.append(l_last * (zl * zl % rc.FR - zl) % rc.FR)
-        for c in range(1, num_chunks):
-            exprs.append(l0 * (perm_z[c]["x"] - perm_z[c - 1]["last"]) % rc.FR)
-
-        def col_eval(col, gpos) -> int:
-            if col.kind == ADVICE:
-                return adv_map[(col.index, 0)]
-            if col.kind == FIXED:
-                return fix_map[(col.index, 0)]
-            return instance_eval(col.index, 0)
-
-        for ci in range(num_chunks):
-            chunk = csys.permutation_columns[ci * chunk_len:(ci + 1) * chunk_len]
-            left = perm_z[ci]["next"]
-            right = perm_z[ci]["x"]
-            for pos, col in enumerate(chunk):
-                gpos = ci * chunk_len + pos
-                v = col_eval(col, gpos)
-                left = left * ((v + beta * sigma_evals[gpos] + gamma) % rc.FR) % rc.FR
-                right = right * ((v + beta * pow(DELTA, gpos, rc.FR) % rc.FR * x
-                                  + gamma) % rc.FR) % rc.FR
-            exprs.append(active * ((left - right) % rc.FR) % rc.FR)
-
-    # lookup constraints
-    for lk, le in zip(csys.lookups, lookup_evals):
-        a_comp = 0
-        for p_in, _ in lk.pairs:
-            a_comp = (a_comp * theta + eval_expr(p_in)) % rc.FR
-        s_comp = 0
-        for _, p_tab in lk.pairs:
-            s_comp = (s_comp * theta + eval_expr(p_tab)) % rc.FR
-        exprs.append(l0 * (1 - le["z"]) % rc.FR)
-        exprs.append(l_last * (le["z"] * le["z"] % rc.FR - le["z"]) % rc.FR)
-        lhs = le["z_next"] * ((le["a"] + beta) % rc.FR) % rc.FR \
-            * ((le["s"] + gamma) % rc.FR) % rc.FR
-        rhs = le["z"] * ((a_comp + beta) % rc.FR) % rc.FR \
-            * ((s_comp + gamma) % rc.FR) % rc.FR
-        exprs.append(active * ((lhs - rhs) % rc.FR) % rc.FR)
-        exprs.append(l0 * ((le["a"] - le["s"]) % rc.FR) % rc.FR)
-        exprs.append(active * ((le["a"] - le["s"]) % rc.FR)
-                     * ((le["a"] - le["a_prev"]) % rc.FR) % rc.FR)
-
-    h_eval = 0
-    for e in exprs:
-        h_eval = (h_eval * y + e) % rc.FR
-    zh = (xn - 1) % rc.FR
-    expected_h = h_eval * rc.finv(zh, rc.FR) % rc.FR
-
-    # derived h commitment: sum x^{n i} [h_i]
-    h_comm = ("msm", [(pt, pow(xn, i, rc.FR)) for i, pt in enumerate(h_commits)])
-
     # ---- multiopen queries (same canonical order as prover.py) -----------------
     queries = []
 
@@ -213,6 +225,13 @@ def verify_proof(params, vk: VerifyingKey, instances: list, proof: bytes,
     for gpos in range(num_sigmas):
         q(vk.permutation_commitments[gpos], x, sigma_evals[gpos], f"sigma{gpos}")
     q(random_commit, x, random_eval, "random")
-    q(h_comm, x, expected_h, "h")
+
+    # h: its expected value at x, against the derived commitment
+    # sum x^{n i} [h_i]
+    evals = {(vq.name, vq.point): vq.eval for vq in queries}
+    want_h = expected_h(csys, dom, instances, challenges, theta, beta, gamma,
+                        y, x, lambda name, point: evals[(name, point)])
+    h_comm = ("msm", [(pt, pow(xn, i, rc.FR)) for i, pt in enumerate(h_commits)])
+    q(h_comm, x, want_h, "h")
 
     return verify_shplonk(params, queries, t)

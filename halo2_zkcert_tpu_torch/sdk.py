@@ -4,7 +4,8 @@ and the EVM verifier's calls.
 Counterpart of halo2_zkcert_tpu/sdk.py.  A saved pk is a vk sidecar
 `<path>.vk` (json, with the circuit's `cache_digest`) and `<path>.npz`
 holding the four column arrays as (m, n, 33) int32 byte limbs, the layout
-the JAX package writes; each package reads the other's files.
+the JAX package writes; each package reads the other's files.  The port
+writes and reads them a group of columns at a time (utils/npzstream.py).
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ import torch
 from . import evm
 from .plonk import create_proof, verify_proof
 from .plonk.assignment import BlindingRng, CircuitData
-from .plonk.keygen import (ProvingKey, VerifyingKey, from_reference_pk,
-                           keygen, vk_from_dict, vk_to_dict)
+from .plonk.keygen import (ProvingKey, VerifyingKey, keygen,
+                           resident_columns, vk_from_dict, vk_to_dict,
+                           vk_with_cs)
 from .plonk.kzg import ParamsKZG
 from .transcript import KeccakTranscript, PoseidonTranscript
+from .utils.npzstream import NpzReader, NpzWriter
 
 PK_ARRAYS = ("fixed_lagrange", "fixed_coeff", "sigma_lagrange", "sigma_coeff")
 
@@ -61,35 +64,59 @@ def read_vk(path: str) -> VerifyingKey:
         return vk_from_dict(json.load(f))
 
 
+# bytes of (m, n, 33) int32 limbs a group of columns takes on the host, in
+# write_pk and read_pk
+GROUP_BYTES = 256 << 20
+
+
 def _limbs(cols: torch.Tensor) -> np.ndarray:
-    """(m, n, 8) canonical words -> (m, n, 33) int32 byte limbs."""
-    raw = cols.cpu().contiguous().numpy().astype("<i4").view(np.uint8)
-    out = np.zeros(raw.shape[:2] + (33,), dtype=np.int32)
-    out[..., :32] = raw
-    return out
+    """(g, n, 8) canonical words -> (g, n, 33) int32 byte limbs, built on
+    the columns' device and copied to the host."""
+    out = torch.zeros(cols.shape[:2] + (33,), dtype=torch.int32,
+                      device=cols.device)
+    out[..., :32] = cols.contiguous().view(torch.uint8)
+    return out.cpu().numpy()
 
 
 def write_pk(pk: ProvingKey, path: str,
              cache_digest: bytes | None = None) -> None:
-    """`<path>.vk` (with `cache_digest` when given) and `<path>.npz`."""
+    """`<path>.vk` (with `cache_digest` when given) and `<path>.npz`: the
+    four column arrays as (m, n, 33) int32 byte limbs, the entries of
+    `np.savez_compressed`, deflated a group of columns at a time in
+    threads (utils/npzstream.py)."""
     d = vk_to_dict(pk.vk)
     if cache_digest is not None:
         d["cache_digest"] = cache_digest.hex()
     with open(path + ".vk", "w") as f:
         json.dump(d, f)
-    np.savez_compressed(path, **{k: _limbs(getattr(pk, k))
-                                 for k in PK_ARRAYS})
+    with NpzWriter(path + ".npz") as w:
+        for name in PK_ARRAYS:
+            cols = getattr(pk, name)
+            m, n = cols.shape[:2]
+            g = max(1, GROUP_BYTES // (n * 33 * 4))
+            w.write_array(name, (m, n, 33), "<i4",
+                          (_limbs(cols[i:i + g]) for i in range(0, m, g)))
 
 
 def read_pk(path: str, device="cuda", cs=None) -> ProvingKey:
     """Load `<path>.vk` + `<path>.npz`, written by either package (only the
-    four column arrays are read), onto `device`; `cs` replaces the decoded
-    constraint system when its digest is the same."""
+    four column arrays are read), onto `device`, a group of columns at a
+    time; `cs` replaces the decoded constraint system when its digest is
+    the same."""
     with open(path + ".vk") as f:
         vk_dict = json.load(f)
-    z = np.load(path + ".npz", allow_pickle=False)
-    return from_reference_pk({k: z[k] for k in PK_ARRAYS}, vk_dict, device,
-                             cs=cs)
+    cols = {}
+    with NpzReader(path + ".npz") as z:
+        for name in PK_ARRAYS:
+            shape, blocks = z.blocks(name, GROUP_BYTES)
+            out = torch.empty(shape[:2] + (8,), dtype=torch.int32,
+                              device=device)
+            i = 0
+            for block in blocks:
+                out[i:i + block.shape[0]] = resident_columns(block, device)
+                i += block.shape[0]
+            cols[name] = out
+    return ProvingKey(vk=vk_with_cs(vk_dict, cs), **cols)
 
 
 def gen_pk(params: ParamsKZG, data: CircuitData,
@@ -110,6 +137,8 @@ def gen_pk(params: ParamsKZG, data: CircuitData,
             valid = (vk_from_dict(sidecar).cs.digest_bytes()
                      == data.cs.digest_bytes())
         if valid:
+            print(f"# gen_pk: the key at {path} was made from this circuit; "
+                  "reading it", file=sys.stderr)
             pk = read_pk(path, device, cs=data.cs)
             if stored is None:
                 sidecar["cache_digest"] = want.hex()
