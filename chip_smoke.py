@@ -2275,12 +2275,12 @@ def check_snark(label: str, params, snark, instances_ok: bool = True,
 # phase 13: the four-step transform on the int8 tensor cores
 # ---------------------------------------------------------------------------
 
-# the dense int8 rate of one H100 SXM's tensor cores at 700 W (data sheet),
-# and the bare Montgomery product rate measured on it (bench.py --cios-rate)
+# the dense int8 rate of one H100 SXM's tensor cores at 700 W (data sheet)
 INT8_OPS_PER_S = 1979e12
-CIOS_PRODUCTS_PER_S = 36.9e9
-# Montgomery products a base DFT's epilogue spends on an output element
-DFT_PRODUCTS = 2
+# a base DFT's epilogue an output element, in 256-bit products (128 word
+# products each): two schoolbook products (64 + 16) and one Montgomery
+# reduction (64), bn254.cuh dft_words_to_fe
+DFT_PRODUCTS = 144 / 128
 
 
 def _capture_dft_launches(fn) -> list:
@@ -2305,7 +2305,11 @@ def _dft_record(name, launch) -> dict:
     """One base DFT launch shape: the kernel against its plain version over
     column slices (every column), its device time, the plain version's, and
     torch._int_mm (cuBLASLt s8 x s8 -> s32) on the same product alone as the
-    library yardstick."""
+    library yardstick (its digits d - 128: the kernel takes the bytes d
+    unsigned, a product of the same shape and work).  Besides: the loader
+    the launch took (`ntt_mxu.dft_s8_plan`), the int8 rate achieved against
+    the whole 64 x 32 blocks and against their band, and the factor to
+    torch._int_mm."""
     from halo2_zkcert_tpu_torch.ops import ntt_mxu
     x, r_log, consts, cin, cout = launch
     r = 1 << r_log
@@ -2337,13 +2341,17 @@ def _dft_record(name, launch) -> dict:
     rec = _record(name, "halo2_zkcert_tpu_torch/csrc/ntt_mxu.cu",
                   "halo2_zkcert_tpu/ops/ntt_mxu.py:184", err, ms, plain_ms,
                   0, 0, "ntt_mxu")
+    plan = ntt_mxu.dft_s8_plan(m, r_log, cin)
+    block_ops = 2 * ntt_mxu.LOUT * ntt_mxu.NB * r * r * m
     rec.update(bound_ms=max(b_ms, o_ms),
                bound_by="bytes" if b_ms >= o_ms else "operations",
                library_ms=library_ms, int8_ops=int8_ops,
+               loader=plan["loader"],
+               block_share=block_ops / (rec["ms"] * 1e-3) / INT8_OPS_PER_S,
+               band_share=int8_ops / (rec["ms"] * 1e-3) / INT8_OPS_PER_S,
+               library_factor=rec["ms"] / library_ms,
                int8_bound_ms=int8_ops / INT8_OPS_PER_S * 1e3,
                reduction_bound_ms=red_ops / OPS_PER_S * 1e3,
-               reduction_ms_at_measured_rate=DFT_PRODUCTS * r * m
-               / CIOS_PRODUCTS_PER_S * 1e3,
                shape={"radix": r, "columns": m, "cin": cin, "cout": cout})
     return rec
 
@@ -2869,6 +2877,31 @@ def check_launches(launches: dict) -> None:
         raise AssertionError(f"launch counts: {broken}")
 
 
+def log_gmma_sass(kernels) -> None:
+    """The count of tensor-core warpgroup instructions (IGMMA, HGMMA) in
+    k_dft_s8's SASS, where the toolkit has cuobjdump: the product runs on
+    wgmma, not mma.sync."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin",
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        log("[build] k_dft_s8 SASS: no cuobjdump in the toolkit")
+        return
+    sass = subprocess.run([tool, "-sass", str(kernels._lib_path("ntt_mxu"))],
+                          capture_output=True, text=True, timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+        elif fn and "k_dft_s8" in fn:
+            for op in ("IGMMA", "HGMMA", "IMMA"):
+                if op in line:
+                    counts[op] = counts.get(op, 0) + 1
+    log(f"[build] k_dft_s8 SASS: {counts} (cuobjdump)")
+    if not counts.get("IGMMA"):
+        raise AssertionError("k_dft_s8: no IGMMA in its SASS, the product "
+                             "is not on wgmma")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=17)
@@ -2882,6 +2915,7 @@ def main() -> int:
 
     from halo2_zkcert_tpu_torch import native
     build_s = kernels.build_all(verbose=True)
+    log_gmma_sass(kernels)
     t0 = time.perf_counter()
     host_lib = native.build()
     card = card_line()
@@ -2929,14 +2963,23 @@ def main() -> int:
                                                 *link, warmup=False)
     mxu_recs, launches["ntt_mxu_proof"] = check_ntt_mxu(device, rng, link)
     recs += mxu_recs
+    from halo2_zkcert_tpu_torch.ops import ntt_mxu
     for r in mxu_recs:
+        shape = r["shape"]
+        plan = ntt_mxu.dft_s8_plan(shape["columns"],
+                                   shape["radix"].bit_length() - 1,
+                                   shape["cin"])
         log(f"[kernels] {r['name']}: {r['ms']:.4f} ms ({r['issued_ms']:.4f} "
             f"as issued from Python, plain {r['plain_ms']:.3f} ms, "
-            f"torch._int_mm {r['library_ms']:.4f} ms, bound "
-            f"{r['bound_ms']:.4f} ms by {r['bound_by']}: int8 "
-            f"{r['int8_bound_ms']:.4f}, reduction {r['reduction_bound_ms']:.4f}"
-            f" ({r['reduction_ms_at_measured_rate']:.4f} at the measured "
-            f"product rate); {card})")
+            f"torch._int_mm {r['library_ms']:.4f} ms, {r['library_factor']:.3f}"
+            f" times its time; bound {r['bound_ms']:.4f} ms by "
+            f"{r['bound_by']}: int8 {r['int8_bound_ms']:.4f}, reduction "
+            f"{r['reduction_bound_ms']:.4f}; int8 rate {r['block_share']:.4f} "
+            f"of 1979 T/s against the whole blocks, {r['band_share']:.4f} "
+            f"against the band; loader {r['loader']}, {plan['tiles']} tiles "
+            f"on {plan['blocks']} blocks, planned L2 -> SM "
+            f"{plan['l2_bytes'] / 1e9:.3f} GB (the boxes' bytes from the tile "
+            f"shape, not measured); {card})")
     launches.update(check_knobs(device, link, card))
     torch.cuda.empty_cache()
     launches["sharded_proof"] = check_sharded(card, params_dir)

@@ -886,7 +886,8 @@ H2T_HD void fs_run_apply(uint32_t* a, const uint32_t* b, int cnt,
 // the construction of corr (a multiple of p and the data's offset folded in
 // on the host); they carry into 17 words V < 2^544, and
 //   V = c0 + c1 2^253 + c2 2^506,  c0, c1 < 2^253 < p,  c2 < 2^38,
-// so V mod p = c0 + mont_mul(c1, 2^253 R) + mont_mul(c2, 2^506 R).
+// so V mod p is the Montgomery reduction of c0 2^256 + c1 (2^253 R) +
+// c2 (2^506 R) (dft_words_to_fe).
 // ---------------------------------------------------------------------------
 
 static const int DFT_LIMBS = 64;  // product limbs of an output element
@@ -895,6 +896,201 @@ static const int DFT_BYTES = 32;  // exact bytes of an input element
 H2T_HD long long dft_addr(long long col, long long row, int r,
                           long long cstride) {
   return ((col / cstride) * r + row) * cstride + col % cstride;
+}
+
+// The launch geometry of csrc/ntt_mxu.cu, shared with csrc/host_check.cpp so
+// that the tests can enumerate it on the host.  A tile is DFT_TE output
+// elements (k) x DFT_TN columns; tile t is element group t % etiles of
+// column tile t / etiles.  A pipeline step covers DFT_TJ input elements (j):
+// the lhs box of 4 x 64 rows x 4 x 32 bytes, and the data of the tile's
+// DFT_TN columns at those j.  The kernel reads lhs with its rows reordered
+// in groups of four output elements (ops/ntt_mxu.py `kernel_lhs`, zero rows
+// up to whole groups): row 256 g + 8 i + 2 e + b holds row (4 g + e, 2 i +
+// b), so that in wgmma's accumulator lane q of a quad holds all 64 limbs of
+// element 4 g + q.  The data's tensor map sees the input as (m / cin, r,
+// cin) x 32 bytes:
+// - DFT_TMA_COLS (cin divides or is divided by DFT_TN): one box a j, the
+//   tile's columns in 32-byte rows under the 32-byte swizzle;
+// - DFT_TMA_J (cin = 1, a column's elements contiguous): one box a step,
+//   128-byte rows of one column's four j under the 128-byte swizzle;
+// both where every box lies inside its tensor; otherwise (a radix below
+// DFT_TJ, a column count that is not whole tiles, another cin) the producer
+// warp gathers the DFT_TMA_COLS layout with cp.async and zero-fills what
+// lies outside (DFT_CP_ASYNC).
+static const int DFT_TE = 4;    // output elements a tile: N = 256 limbs
+static const int DFT_TN = 128;  // columns a tile: two m64 warpgroups
+static const int DFT_TJ = 4;    // input elements a step: 128 bytes of depth
+enum DftLoader { DFT_TMA_COLS = 0, DFT_TMA_J = 1, DFT_CP_ASYNC = 2 };
+
+struct DftPlan {
+  int loader, r;
+  long long m, cin, etiles, ctiles, tiles, steps;
+  // tensor maps, innermost dimension first; strides in bytes of dims 1..
+  uint64_t ldims[2], lstride, ddims[4], dstrides[3];
+  uint32_t lbox[2], dbox[4];
+};
+
+H2T_HD DftPlan dft_plan(long long m, int r_log, long long cin) {
+  DftPlan p;
+  const long long r = 1LL << r_log;
+  p.r = (int)r;
+  p.m = m;
+  p.cin = cin;
+  p.etiles = (r + DFT_TE - 1) / DFT_TE;
+  p.ctiles = (m + DFT_TN - 1) / DFT_TN;
+  p.tiles = p.etiles * p.ctiles;
+  p.steps = (r + DFT_TJ - 1) / DFT_TJ;
+  const bool whole = r >= DFT_TJ && m % DFT_TN == 0;
+  const bool cols = cin % DFT_TN == 0 || DFT_TN % cin == 0;
+  p.loader = !whole ? DFT_CP_ASYNC
+             : cin == 1 ? DFT_TMA_J
+             : cols ? DFT_TMA_COLS : DFT_CP_ASYNC;
+  p.ldims[0] = (uint64_t)(DFT_BYTES * r);  // bytes (j, l2)
+  p.ldims[1] = (uint64_t)(DFT_LIMBS * DFT_TE * p.etiles);  // rows
+  p.lstride = p.ldims[0];
+  p.lbox[0] = DFT_TJ * DFT_BYTES;
+  p.lbox[1] = DFT_TE * DFT_LIMBS;
+  if (p.loader == DFT_TMA_J) {
+    // (m, 32 r bytes): a row of 128 bytes is four j of one column
+    p.ddims[0] = (uint64_t)(DFT_BYTES * r);
+    p.ddims[1] = p.ddims[2] = 1;
+    p.ddims[3] = (uint64_t)m;
+    p.dstrides[0] = p.dstrides[1] = p.dstrides[2] = p.ddims[0];
+    p.dbox[0] = DFT_TJ * DFT_BYTES;
+    p.dbox[1] = p.dbox[2] = 1;
+    p.dbox[3] = DFT_TN;
+  } else {
+    // (m / cin, r, cin) x 32 bytes: a row is one column of one j
+    const long long bc = cin < DFT_TN ? cin : DFT_TN;
+    p.ddims[0] = DFT_BYTES;
+    p.ddims[1] = (uint64_t)cin;
+    p.ddims[2] = (uint64_t)r;
+    p.ddims[3] = (uint64_t)(m / cin);
+    p.dstrides[0] = DFT_BYTES;
+    p.dstrides[1] = (uint64_t)(DFT_BYTES * cin);
+    p.dstrides[2] = (uint64_t)(DFT_BYTES * cin * r);
+    p.dbox[0] = DFT_BYTES;
+    p.dbox[1] = (uint32_t)bc;
+    p.dbox[2] = 1;
+    p.dbox[3] = (uint32_t)(DFT_TN / bc);
+  }
+  return p;
+}
+
+// first output element and first column of tile t
+H2T_HD void dft_tile(const DftPlan& p, long long t, long long* e0,
+                     long long* col0) {
+  *e0 = (t % p.etiles) * DFT_TE;
+  *col0 = (t / p.etiles) * DFT_TN;
+}
+
+// box coordinates, innermost first: the lhs box of step s of a tile at e0,
+// and the data box of input element j of a tile at col0 (DFT_TMA_J: the
+// step's box, j its first element)
+H2T_HD void dft_lhs_coord(long long e0, long long s, int c[2]) {
+  c[0] = (int)(s * DFT_TJ * DFT_BYTES);
+  c[1] = (int)(e0 * DFT_LIMBS);
+}
+
+H2T_HD void dft_data_coord(const DftPlan& p, long long col0, int j,
+                           int c[4]) {
+  if (p.loader == DFT_TMA_J) {
+    c[0] = j * DFT_BYTES;
+    c[1] = c[2] = 0;
+    c[3] = (int)col0;
+    return;
+  }
+  c[0] = 0;
+  c[1] = (int)(col0 % p.cin);
+  c[2] = j;
+  c[3] = (int)(col0 / p.cin);
+}
+
+// byte offset in a step's data tile of 16-byte chunk c of column n's input
+// element jj: DFT_TMA_J 128-byte rows (n) under the 128-byte swizzle, else
+// a 4 KB slab a j of 32-byte rows (n) under the 32-byte swizzle
+H2T_HD uint32_t dft_data_offset(int loader, uint32_t n, uint32_t jj,
+                                uint32_t c) {
+  if (loader == DFT_TMA_J)
+    return n * 128 + (((2 * jj + c) ^ (n & 7)) << 4);
+  return jj * DFT_TN * DFT_BYTES + n * DFT_BYTES +
+         ((c ^ ((n >> 2) & 1)) << 4);
+}
+
+// V (17 words) mod p, canonical: with f253 = 2^253 R and f506 = 2^506 R
+// (mod p), X = c0 2^256 + c1 f253 + c2 f506 is below 2^509.3 < p 2^256, so
+// one Montgomery reduction of X gives V mod p (below 2p, then one
+// conditional subtraction).  The two products are plain schoolbook
+// products, independent of each other; 144 word products in all.
+H2T_HD Fe dft_words_to_fe(const uint32_t v[17], const Fe& f253,
+                          const Fe& f506) {
+  Fe c0, c1;
+  uint32_t c2[2];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    c0.w[i] = v[i];
+    c1.w[i] = (v[7 + i] >> 29) | (v[8 + i] << 3);
+  }
+  c0.w[7] &= 0x1fffffffu;
+  c1.w[7] &= 0x1fffffffu;
+  c2[0] = (v[15] >> 26) | (v[16] << 6);
+  c2[1] = v[16] >> 26;
+  uint32_t x[17];
+#pragma unroll
+  for (int i = 0; i < 17; ++i) x[i] = 0;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // x = c1 f253
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t t = (uint64_t)c1.w[i] * f253.w[j] + x[i + j] + c;
+      x[i + j] = (uint32_t)t;
+      c = t >> 32;
+    }
+    x[i + 8] = (uint32_t)c;
+  }
+  uint64_t top = 0;  // x += c2 f506 + c0 2^256, carried through x[16]
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t t = (uint64_t)c2[i] * f506.w[j] + x[i + j] + c;
+      x[i + j] = (uint32_t)t;
+      c = t >> 32;
+    }
+#pragma unroll
+    for (int j = i + 8; j < 17; ++j) {
+      const uint64_t t = (uint64_t)x[j] + c;
+      x[j] = (uint32_t)t;
+      c = t >> 32;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    top += (uint64_t)x[8 + i] + c0.w[i];
+    x[8 + i] = (uint32_t)top;
+    top >>= 32;
+  }
+  x[16] += (uint32_t)top;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {  // Montgomery reduction, a word a step
+    const uint32_t m = x[i] * Mod<FR>::pinv;
+    uint64_t c = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint64_t t = (uint64_t)m * Mod<FR>::p(j) + x[i + j] + c;
+      x[i + j] = (uint32_t)t;
+      c = t >> 32;
+    }
+#pragma unroll
+    for (int j = i + 8; j < 17; ++j) {
+      const uint64_t t = (uint64_t)x[j] + c;
+      x[j] = (uint32_t)t;
+      c = t >> 32;
+    }
+  }
+  return cond_sub_p<FR>(x + 8, x[16]);
 }
 
 H2T_HD Fe dft_limbs_to_fe(const int32_t* raw, long long stride,
@@ -913,17 +1109,7 @@ H2T_HD Fe dft_limbs_to_fe(const int32_t* raw, long long stride,
     acc >>= 32;
   }
   v[16] = (uint32_t)acc;
-  Fe c0, c1, c2 = fe_zero();
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    c0.w[i] = v[i];
-    c1.w[i] = (v[7 + i] >> 29) | (v[8 + i] << 3);
-  }
-  c0.w[7] &= 0x1fffffffu;
-  c1.w[7] &= 0x1fffffffu;
-  c2.w[0] = (v[15] >> 26) | (v[16] << 6);
-  c2.w[1] = v[16] >> 26;
-  return fadd<FR>(c0, fadd<FR>(mont_mul<FR>(c1, f253), mont_mul<FR>(c2, f506)));
+  return dft_words_to_fe(v, f253, f506);
 }
 
 }  // namespace bn254

@@ -289,33 +289,69 @@ extern "C" int hc_field_reduce(int field, int op, const uint32_t* a,
 }
 
 // csrc/ntt_mxu.cu's base DFT with its product written as loops: the same
-// digits (byte ^ 0x80 read as s8), addresses and epilogue.
+// operands (the data's bytes unsigned, lhs's digits signed), addresses and
+// epilogue.
 extern "C" void hc_dft_s8(const int8_t* lhs, const int32_t* corr,
                           const uint32_t* fold, const uint32_t* in,
                           uint32_t* out, long long m, int r_log,
                           long long cin, long long cout) {
   const int r = 1 << r_log;
   const long long K = (long long)DFT_BYTES * r;
-  std::vector<int8_t> digits(K);
+  std::vector<uint8_t> bytes(K);
   std::vector<int32_t> raw(DFT_LIMBS);
   const Fe f253 = load_fe(fold), f506 = load_fe(fold + 8);
   for (long long col = 0; col < m; ++col) {
     for (int j = 0; j < r; ++j) {
       const uint8_t* b = reinterpret_cast<const uint8_t*>(
           in + dft_addr(col, j, r, cin) * 8);
-      for (int l2 = 0; l2 < DFT_BYTES; ++l2)
-        digits[j * DFT_BYTES + l2] = (int8_t)(b[l2] ^ 0x80);
+      for (int l2 = 0; l2 < DFT_BYTES; ++l2) bytes[j * DFT_BYTES + l2] = b[l2];
     }
     for (int k = 0; k < r; ++k) {
       for (int l = 0; l < DFT_LIMBS; ++l) {
         const int8_t* row = lhs + ((long long)k * DFT_LIMBS + l) * K;
         int32_t s = 0;
-        for (long long q = 0; q < K; ++q) s += (int32_t)row[q] * digits[q];
+        for (long long q = 0; q < K; ++q) s += (int32_t)row[q] * bytes[q];
         raw[l] = s;
       }
       store_fe(out + dft_addr(col, k, r, cout) * 8,
                dft_limbs_to_fe(raw.data(), 1, corr + k * DFT_LIMBS, f253,
                                f506));
     }
+  }
+}
+
+// csrc/ntt_mxu.cu's launch geometry (bn254.cuh dft_plan): `plan` gets
+// [loader, element tiles, column tiles, tiles, steps, lhs dims[2], lhs
+// stride, lhs box[2], data dims[4], data strides[3], data box[4]]; where
+// the other pointers are not null, `tiles_out` gets (e0, col0) of every
+// tile, `lhs_coords` the lhs box of every (tile, step) and `data_coords`
+// the data box of every (tile, j), innermost coordinate first.
+extern "C" void hc_dft_plan(long long m, int r_log, long long cin,
+                            long long* plan, long long* tiles_out,
+                            int* lhs_coords, int* data_coords) {
+  const DftPlan p = dft_plan(m, r_log, cin);
+  long long* o = plan;
+  *o++ = p.loader;
+  *o++ = p.etiles;
+  *o++ = p.ctiles;
+  *o++ = p.tiles;
+  *o++ = p.steps;
+  for (int i = 0; i < 2; ++i) *o++ = (long long)p.ldims[i];
+  *o++ = (long long)p.lstride;
+  for (int i = 0; i < 2; ++i) *o++ = p.lbox[i];
+  for (int i = 0; i < 4; ++i) *o++ = (long long)p.ddims[i];
+  for (int i = 0; i < 3; ++i) *o++ = (long long)p.dstrides[i];
+  for (int i = 0; i < 4; ++i) *o++ = p.dbox[i];
+  if (!tiles_out) return;
+  for (long long t = 0; t < p.tiles; ++t) {
+    long long e0, col0;
+    dft_tile(p, t, &e0, &col0);
+    tiles_out[2 * t] = e0;
+    tiles_out[2 * t + 1] = col0;
+    for (long long s = 0; s < p.steps; ++s)
+      dft_lhs_coord(e0, s, lhs_coords + 2 * (t * p.steps + s));
+    for (long long j = 0; j < p.steps * DFT_TJ; ++j)
+      dft_data_coord(p, col0, (int)j,
+                     data_coords + 4 * (t * p.steps * DFT_TJ + j));
   }
 }

@@ -51,6 +51,7 @@ _SIGNATURES = {
     "h2t_field_reduce": [_I, _I, _P, _P, _P, _P, _L, _L, _L, _I, _P],
     "h2t_ntt_pass": [_P, _L, _P, _L, _I, _I, _I, _I, _P, _P, _L, _P, _L, _P],
     "h2t_dft_s8": [_P, _P, _P, _P, _P, _L, _I, _L, _L, _P],
+    "h2t_dft_s8_plan": [_L, _I, _L, _P],
     "h2t_point_add": [_P, _P, _P, _L, _P],
     "h2t_point_double": [_P, _P, _L, _P],
     "h2t_point_add_mixed": [_P, _P, _P, _L, _P],

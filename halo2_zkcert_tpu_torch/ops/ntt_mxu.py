@@ -11,30 +11,34 @@ recursively, until a DFT has at most 2^MAX_RADIX_LOG points.  The levels are
 balanced (k = 17 splits as 5 + 6 + 6, k = 19 as 6 + 6 + 7): a level of radix
 r costs int8 work in proportion to r, and every level one reduction.
 
-A base DFT of radix r over m columns is ONE s8 x s8 -> s32 product.  The
-data side is the 32 exact bytes d of each canonical element, as d - 128; the
-constant side holds the 33 balanced base-256 digits of every W[k, j] with the
-limb convolution folded into its rows:
+A base DFT of radix r over m columns is ONE u8 x s8 -> s32 product.  The
+data side is the 32 exact bytes d of each canonical element, unsigned, as
+they lie in memory; the constant side holds the 33 balanced base-256 digits
+of every W[k, j] with the limb convolution folded into its rows:
 
     lhs[(k, l), (j, l2)] = bal(W[k, j])[l - l2],   l < 64, l2 < 32
 
 so the product's rows (k, 0..63) are the 64 limbs of output k.  Each limb is
-at most 32 r * 2^14 in magnitude, exact in int32.  `corr[k, l]` adds back
-128 times the row sums (the data's offset) and the digits of a multiple of p
-that keep every limb in [0, 2^31); the limbs then carry into a number below
-2^544, which is reduced mod p in chunks of 253 bits (two Montgomery products
-with 2^253 R and 2^506 R).  Coset powers, 1/n and a factor R of Montgomery
-form in or out fold into the constants (the DFT is linear), so every flavour
-costs the same.  The twiddles between levels are one K1 Montgomery product
+at most 32 r * 255 * 128 in magnitude, exact in int32.  `corr[k, l]` adds
+the digits of a multiple of p that keep every limb in [0, 2^31) (the same
+row for every k); the limbs then carry into a number below 2^544, which is
+reduced mod p in chunks of 253 bits (here two Montgomery products with
+2^253 R and 2^506 R; the kernel, one Montgomery reduction of c0 2^256 + c1
+2^253 R + c2 2^506 R, the same residue).  Coset powers, 1/n and a factor R
+of Montgomery form in or out fold into the constants (the DFT is linear),
+so every flavour costs the same.  The twiddles between levels are one K1 Montgomery product
 (`field.mul_mont`) with a table stored times R.
 
-`dft_s8` wraps csrc/ntt_mxu.cu on a CUDA tensor; on a CPU tensor it runs
-`dft_s8_plain`, the same digit product as a float64 matrix product (exact:
-every partial sum is below 2^53) and the same carry and reduction in int64.
+`dft_s8` wraps csrc/ntt_mxu.cu on a CUDA tensor (wgmma u8 x s8, TMA or
+cp.async loads, the carry and reduction fused; `dft_s8_plan` gives its
+launch geometry); on a CPU tensor it runs `dft_s8_plain`, the same digit
+product as a float64 matrix product (exact: every partial sum is below
+2^53) and the same carry and reduction in int64.
 The result equals the radix-2 transform's (ops/ntt.py) as canonical residues.
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 
@@ -51,7 +55,8 @@ LOUT = NB + L1 - 1         # 64 product limbs of an output element
 MAX_RADIX_LOG = 7          # largest base DFT (depth 32 * 128 = 4096)
 CHUNK_BITS = 253           # the reduction's chunks: each below 2^253 < p
 # every limb after the correction lies in [OFFSET_LO - spread, OFFSET_HI +
-# spread], spread = 128 * 255 * 32 r at most, which stays in [0, 2^31)
+# spread], spread = 255 * 128 * 32 r at most (a byte times a balanced
+# digit), which stays in [0, 2^31)
 OFFSET_LO, OFFSET_HI = 1 << 28, 1_800_000_000
 
 _device: dict = {}
@@ -124,7 +129,8 @@ def dft_matrix(r_log: int, w: int, in_scale: int, out_scale: int,
 def dft_consts(r_log: int, w: int, in_scale: int, out_scale: int,
                const: int) -> tuple:
     """Host constants of one base DFT: (lhs (64 r, 32 r) int8, rows (k, l)
-    output-major and limb-minor, columns (j, l2); corr (r, 64) int32)."""
+    output-major and limb-minor, columns (j, l2); corr (r, 64) int32, the
+    offset digits on every row: the data's bytes enter unsigned)."""
     r = 1 << r_log
     W = dft_matrix(r_log, w % FR.modulus, in_scale % FR.modulus,
                    out_scale % FR.modulus, const % FR.modulus)
@@ -133,9 +139,8 @@ def dft_consts(r_log: int, w: int, in_scale: int, out_scale: int,
     for l2 in range(NB):
         lhs[:, l2:l2 + L1, :, l2] = bal.transpose(0, 2, 1)
     lhs = lhs.reshape(LOUT * r, NB * r)
-    row_sums = lhs.astype(np.int64).sum(axis=1).reshape(r, LOUT)
-    corr = offset_digits()[None, :] + 128 * row_sums
-    spread = 128 * 255 * NB * r
+    corr = np.tile(offset_digits(), (r, 1))
+    spread = 255 * 128 * NB * r
     assert OFFSET_LO - spread >= 0 and OFFSET_HI + spread < 2 ** 31, r
     assert corr.min() >= -2 ** 31 and corr.max() < 2 ** 31
     return lhs, corr.astype(np.int32)
@@ -150,13 +155,15 @@ def fold_consts() -> list:
 
 def _consts(r_log: int, w: int, in_scale: int, out_scale: int, const: int,
             device) -> tuple:
-    """(lhs, corr, fold) of one base DFT on `device`, cached."""
+    """(lhs, corr, fold, kernel_lhs(lhs)) of one base DFT on `device`,
+    cached."""
     key = ("dft", r_log, w, in_scale, out_scale, const, str(device))
     t = _device.get(key)
     if t is None:
         lhs, corr = dft_consts(r_log, w, in_scale, out_scale, const)
-        t = (torch.from_numpy(lhs).to(device), torch.from_numpy(corr).to(device),
-             field.from_ints(FR, fold_consts(), device))
+        lhs = torch.from_numpy(lhs).to(device)
+        t = (lhs, torch.from_numpy(corr).to(device),
+             field.from_ints(FR, fold_consts(), device), kernel_lhs(lhs))
         _device[key] = t
     return t
 
@@ -205,11 +212,11 @@ def dft_s8_plain(x: torch.Tensor, r_log: int, consts: tuple, cin: int,
                  cout: int) -> torch.Tensor:
     """Y[k, col] = sum_j W[k, j] X[j, col] for every column of `x`, read in
     a (m / cin, r, cin) layout and written in a (m / cout, r, cout) one."""
-    lhs, corr, fold = consts
+    lhs, corr, fold = consts[:3]
     r = 1 << r_log
     m = x.numel() // 8 // r
     digits = _columns(x, r, cin).contiguous().view(torch.uint8).reshape(
-        m, NB * r).to(torch.float64) - 128
+        m, NB * r).to(torch.float64)
     prod = digits @ lhs.to(torch.float64).T                 # (m, 64 r), exact
     limbs = prod.to(torch.int64).reshape(m, r, LOUT) + corr.to(torch.int64)
     y = reduce_limbs_plain(limbs, fold)                      # (m, r, 8)
@@ -217,10 +224,45 @@ def dft_s8_plain(x: torch.Tensor, r_log: int, consts: tuple, cin: int,
         x.shape)
 
 
+def kernel_lhs(lhs: torch.Tensor) -> torch.Tensor:
+    """lhs (64 r, 32 r) with its rows in csrc/ntt_mxu.cu's order: in groups
+    of four output elements (zero rows up to whole groups), row
+    256 g + 8 i + 2 e + b holds row (4 g + e, 2 i + b), so that lane q of
+    each quad of the kernel's accumulator holds all 64 limbs of the group's
+    element q."""
+    rows, depth = lhs.shape
+    groups = -(-rows // (4 * LOUT))
+    out = torch.zeros((groups * 4 * LOUT, depth), dtype=lhs.dtype,
+                      device=lhs.device)
+    out[:rows] = lhs
+    return out.reshape(groups, 4, LOUT // 2, 2, depth).permute(
+        0, 2, 1, 3, 4).reshape(-1, depth).contiguous()
+
+
+PLAN_KEYS = ("loader", "element_tiles", "column_tiles", "tiles", "steps",
+             "blocks", "l2_bytes", "smem_bytes")
+LOADERS = ("tma.columns", "tma.j", "cp.async")
+
+
+def dft_s8_plan(m: int, r_log: int, cin: int) -> dict:
+    """The launch geometry csrc/ntt_mxu.cu takes for m columns of radix
+    2^r_log read at column stride cin (bn254.cuh `dft_plan`): its loader,
+    tiles, blocks, and the bytes its boxes move from L2 to the SMs as the
+    tile shape plans them (no counter reads them).  Asks
+    the built library, so it needs the card."""
+    out = (ctypes.c_longlong * len(PLAN_KEYS))()
+    kernels.check(kernels.lib("ntt_mxu").h2t_dft_s8_plan(m, r_log, cin, out),
+                  "ntt_mxu plan")
+    plan = dict(zip(PLAN_KEYS, out))
+    plan["loader"] = LOADERS[plan["loader"]]
+    return plan
+
+
 def dft_s8(x: torch.Tensor, r_log: int, consts: tuple, cin: int,
            cout: int) -> torch.Tensor:
     """One base DFT of radix 2^r_log over the columns of `x` (see
-    `dft_s8_plain`): csrc/ntt_mxu.cu on a CUDA tensor."""
+    `dft_s8_plain`), with the constant tables of `_consts`: csrc/ntt_mxu.cu
+    on a CUDA tensor."""
     r = 1 << r_log
     total = x.numel() // 8
     if (x.shape[-1] != 8 or r_log < 1 or total % r or (total // r) % cin
@@ -229,17 +271,19 @@ def dft_s8(x: torch.Tensor, r_log: int, consts: tuple, cin: int,
                          f"strides {cin}, {cout}")
     if x.device.type == "cpu":
         return dft_s8_plain(x, r_log, consts, cin, cout)
-    lhs, corr, fold = consts
+    lhs, corr, fold, klhs = consts
     x = x.contiguous()
     out = torch.empty_like(x)
     kernels.require_cuda_int32("ntt_mxu", x, corr, fold, out)
-    if (lhs.dtype != torch.int8 or not lhs.is_cuda or not lhs.is_contiguous()
-            or lhs.shape != (LOUT * r, NB * r) or corr.shape != (r, LOUT)):
+    if (lhs.shape != (LOUT * r, NB * r) or corr.shape != (r, LOUT)
+            or klhs.dtype != torch.int8 or not klhs.is_cuda
+            or not klhs.is_contiguous()
+            or klhs.shape != (4 * LOUT * -(-r // 4), NB * r)):
         raise ValueError("dft_s8: bad constant tables")
     lib = kernels.lib("ntt_mxu")
     kernels.launches["ntt_mxu"] += 1
     kernels.check(lib.h2t_dft_s8(
-        lhs.data_ptr(), corr.data_ptr(), fold.data_ptr(), x.data_ptr(),
+        klhs.data_ptr(), corr.data_ptr(), fold.data_ptr(), x.data_ptr(),
         out.data_ptr(), total // r, r_log, cin, cout,
         kernels.stream_ptr(x.device)), "ntt_mxu")
     return out

@@ -627,17 +627,40 @@ def test_evm_accumulator_toy_on_the_card(monkeypatch, good):
     assert evm.execute_ir(ops, instances, proof, params) == good
 
 
+def _canonical_words(seed, count, device):
+    """`count` random canonical Fr elements made on the card (each below
+    2^253 < p), for inputs too large for Python ints."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randint(-2 ** 31, 2 ** 31, (count, 8), generator=g,
+                      device=device, dtype=torch.int64)
+    w[:, 7] &= 0x1FFFFFFF
+    return w.to(torch.int32)
+
+
 @pytest.mark.parametrize("r_log,G,C,cout", [
     (1, 2, 1, 1), (3, 5, 3, 3), (5, 2, 70, 140), (6, 3, 129, 387),
-    (7, 2, 64, 64), (6, 64, 64, 4096)])
+    (7, 2, 64, 64), (6, 64, 64, 4096),
+    # the main path's launches (chip_smoke.py phase 13, PERF.md rows 9-9e)
+    (5, 8, 4096, 4096), (6, 256, 64, 2048), (6, 16384, 1, 2048),
+    (6, 8, 8192, 8192), (6, 512, 128, 8192), (7, 32768, 1, 4096),
+    # every radix over three column tiles
+    (1, 3, 128, 384), (2, 3, 128, 384), (3, 3, 128, 384), (4, 3, 128, 384),
+    (5, 3, 128, 384), (6, 3, 128, 384), (7, 3, 128, 384)])
 def test_dft_s8_kernel(r_log, G, C, cout):
     """csrc/ntt_mxu.cu against its plain version word for word: small radices,
     a ragged column count (not whole 128-column tiles), input and output
-    column strides that differ, and the largest radix; one launch each."""
+    column strides that differ, the largest radix, the main path's six
+    launch shapes at their full column counts, and every radix; one launch
+    each, by TMA where every box lies inside its tensor, else cp.async."""
     from halo2_zkcert_tpu_torch.ops import ntt_mxu
     dev = _device()
     r = 1 << r_log
-    x = _rand(FR, r_log * 7 + C, G * r * C, dev)
+    count = G * r * C
+    x = (_rand(FR, r_log * 7 + C, count, dev) if count <= 262144
+         else _canonical_words(r_log * 7 + C, count, dev))
+    tma = r >= 4 and (G * C) % 128 == 0 and (C % 128 == 0 or 128 % C == 0)
+    assert ntt_mxu.dft_s8_plan(G * C, r_log, C)["loader"] == (
+        ("tma.j" if C == 1 else "tma.columns") if tma else "cp.async")
     consts = ntt_mxu._consts(r_log, rc.fr_root_of_unity(r_log), 5, 3, FR.r,
                              dev)
     before = kernels.launches["ntt_mxu"]

@@ -103,8 +103,9 @@ def test_constant_matrix_equals_jax_dft_consts(r_log, w, in_scale, out_scale,
                 assert not mine[k, l2 + ntt_mxu.L1:, j, l2].any()
             jd = theirs[:jmxu.L1, k, 0, j]
             assert (jd == mine[k, :ntt_mxu.L1, j, 0]).all()
-    row_sums = lhs.astype(np.int64).sum(axis=1).reshape(r, ntt_mxu.LOUT)
-    assert (corr == ntt_mxu.offset_digits()[None] + 128 * row_sums).all()
+    # the data's bytes enter the product unsigned: corr is the offset alone
+    assert corr.shape == (r, ntt_mxu.LOUT)
+    assert (corr == ntt_mxu.offset_digits()[None]).all()
     assert corr.min() >= 0
 
 
@@ -146,19 +147,167 @@ def test_base_dft_layouts_equal_definition(r_log, G_, C, cout_mul):
             assert got[(go * r + k) * cout + co] == want
 
 
-def test_kernel_epilogue_on_the_host(tmp_path):
-    """csrc/ntt_mxu.cu's addressing, digit mapping and epilogue
-    (bn254.cuh dft_addr, dft_limbs_to_fe) built with g++ through
-    csrc/host_check.cpp (the product as loops) equal the plain version."""
+# (r_log, m, cin, cout) of every base DFT launch the main path makes: the
+# four-step `intt` over (8, 2^17) (levels 5, 6, 6) and `coset_ntt` (8, 2^17 ->
+# 2^19) (levels 6, 6, 7), as chip_smoke.py captures them
+MAIN_PATH_LAYOUTS = [(5, 32768, 4096, 4096), (6, 16384, 64, 2048),
+                     (6, 16384, 1, 2048), (6, 65536, 8192, 8192),
+                     (6, 65536, 128, 8192), (7, 32768, 1, 4096)]
+# tests/test_torch_gpu.py test_dft_s8_kernel's layouts
+GPU_TEST_LAYOUTS = [(1, 2, 1, 1), (3, 15, 3, 3), (5, 140, 70, 140),
+                    (6, 387, 129, 387), (7, 128, 64, 64), (6, 4096, 64, 4096),
+                    (2, 6, 3, 6), (4, 256, 1, 16)]
+
+
+def _cut(r_log, m, cin, cout):
+    """A main-path layout with its columns cut to a few groups: the radix
+    kept, cin one or a few columns as it was one or many, cout the same
+    multiple of cin."""
+    if cin == 1:
+        return r_log, 8, 1, 4
+    return r_log, 4 * cout // cin, 2, 2 * cout // cin
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    """csrc/host_check.cpp built once with g++."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed")
-    out = tmp_path / "libhc.so"
+    out = tmp_path_factory.mktemp("hc") / "libhc.so"
     subprocess.run(["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", CSRC,
                     "-o", str(out), os.path.join(CSRC, "host_check.cpp")],
                    check=True, capture_output=True, timeout=300)
     lib = ctypes.CDLL(str(out))
     P, L, I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.hc_dft_s8.argtypes = [P, P, P, P, P, L, I, L, L]
+    lib.hc_dft_plan.argtypes = [L, I, L, P, P, P, P]
+    return lib
+
+
+@pytest.mark.parametrize("layout", [(rl, 2, 1, 2) for rl in range(1, 8)]
+                         + [_cut(*lay) for lay in MAIN_PATH_LAYOUTS],
+                         ids=lambda lay: "r%d_m%d_cin%d_cout%d" % lay)
+def test_plain_and_host_kernel_equal_definition(layout, host_lib):
+    """dft_s8_plain and csrc/host_check.cpp hc_dft_s8 (the kernel's operands,
+    addressing and epilogue, g++) against Y[k, col] = sum_j W[k, j] X[j, col]
+    with Python ints, for every radix and at the main path's layouts."""
+    r_log, m, cin, cout = layout
+    r = 1 << r_log
+    lib = host_lib
+    vals = _rand(1000 + r_log * 7 + cin, m * r)
+    x = field.from_ints(FR, vals, "cpu")
+    w = pow(rc.fr_root_of_unity(r_log), 3, rc.FR)
+    consts = ntt_mxu._consts(r_log, w, G, 5, FR.r, "cpu")
+    plain = ntt_mxu.dft_s8_plain(x, r_log, consts, cin, cout)
+    host = torch.empty_like(x)
+    lhs, corr, fold = consts[:3]
+    lib.hc_dft_s8(lhs.data_ptr(), corr.data_ptr(), fold.data_ptr(),
+                  x.data_ptr(), host.data_ptr(), m, r_log, cin, cout)
+    assert torch.equal(host, plain)
+    got = field.to_ints(plain)
+    W = ntt_mxu.dft_matrix(r_log, w, G, 5, FR.r)
+    X = np.array(vals, dtype=object).reshape(m // cin, r, cin)
+    for col in range(m):
+        g, c = divmod(col, cin)
+        go, co = divmod(col, cout)
+        xs = [int(X[g, j, c]) for j in range(r)]
+        for k in range(r):
+            want = sum(a * b for a, b in zip(W[k], xs)) % rc.FR
+            assert got[(go * r + k) * cout + co] == want
+
+
+@pytest.mark.parametrize("layout", MAIN_PATH_LAYOUTS + GPU_TEST_LAYOUTS,
+                         ids=lambda lay: "r%d_m%d_cin%d_cout%d" % lay)
+def test_launch_geometry_covers_and_stays_inside(layout, host_lib):
+    """csrc/ntt_mxu.cu's launch geometry (bn254.cuh dft_plan, dft_tile and
+    the box coordinates, enumerated by host_check.cpp): every (output
+    element, column) lies in exactly one tile; each step's lhs box holds the
+    tile's 4 x 64 rows at its 4 input elements; where the launch takes TMA,
+    the data boxes hold exactly the tile's 128 columns at its j, in the
+    order the shared tile keeps them (rows of one column's 32 bytes of one
+    j, or at cin = 1 of four j), and every box lies inside its tensor
+    (the cp.async loader gathers column by column and zero-fills)."""
+    r_log, m, cin, _ = layout
+    r = 1 << r_log
+    lib = host_lib
+    plan = np.zeros(25, dtype=np.int64)
+    lib.hc_dft_plan(m, r_log, cin, plan.ctypes.data, None, None, None)
+    loader, etiles, ctiles, tiles, steps = (int(v) for v in plan[:5])
+    ldims, lbox = plan[5:7], plan[8:10]
+    ddims, dbox = plan[10:14], plan[17:21]
+    assert list(plan[7:8]) == [32 * r]
+    tma = r >= 4 and m % 128 == 0 and (cin % 128 == 0 or 128 % cin == 0)
+    assert loader == ((1 if cin == 1 else 0) if tma else 2)
+    assert tiles == etiles * ctiles and steps == -(-r // 4)
+    tile = np.zeros((tiles, 2), dtype=np.int64)
+    lc = np.zeros((tiles, steps, 2), dtype=np.int32)
+    dc = np.zeros((tiles, 4 * steps, 4), dtype=np.int32)
+    lib.hc_dft_plan(m, r_log, cin, plan.ctypes.data, tile.ctypes.data,
+                    lc.ctypes.data, dc.ctypes.data)
+    E, C = np.broadcast_arrays(tile[:, 0, None, None] + np.arange(4)[:, None],
+                               tile[:, 1, None, None] + np.arange(128))
+    inside = (E < r) & (C < m)
+    count = np.zeros((r, m), dtype=np.int64)
+    np.add.at(count, (E[inside], C[inside]), 1)
+    assert (count == 1).all()
+    e0, col0 = tile[:, 0, None], tile[:, 1, None]
+    assert (lc[..., 0] == 128 * np.arange(steps)).all()
+    assert (lc[..., 1] == 64 * e0).all()
+    assert list(lbox) == [128, 256] and list(ldims) == [32 * r, 256 * etiles]
+    assert etiles == -(-r // 4)
+    if cin == 1 and tma:
+        # one box a step: 128 columns, 128 bytes = the step's four j
+        dc = dc[:, ::4]
+        assert list(dbox) == [128, 1, 1, 128]
+        assert list(ddims) == [32 * r, 1, 1, m]
+        assert (dc[..., 0] == 128 * np.arange(steps)).all()
+        assert (dc[..., 3] == col0).all()
+    elif tma:
+        # one box a j: the tile's 128 columns in their order, 32 bytes each
+        assert (dc[..., 2] == np.arange(4 * steps)).all()
+        n = np.arange(128)
+        g = dc[..., 3, None] + n // dbox[1]
+        c = dc[..., 1, None] + n % dbox[1]
+        assert dbox[0] == 32 and dbox[1] * dbox[3] == 128 and dbox[2] == 1
+        assert list(ddims) == [32, cin, r, m // cin]
+        assert list(plan[14:17]) == [32, 32 * cin, 32 * cin * r]
+        assert (g * cin + c == col0[:, :, None] + n).all()
+    if tma:
+        assert (lc >= 0).all() and (dc >= 0).all()
+        assert (lc + lbox <= ldims).all()
+        assert (dc + dbox <= ddims).all()
+
+
+@pytest.mark.parametrize("r_log", [1, 2, 5])
+def test_kernel_lhs_rows(r_log):
+    """The kernel's lhs (`kernel_lhs`): row 256 g + 8 i + 2 e + b is lhs row
+    (4 g + e, 2 i + b), zero where that element does not exist."""
+    r = 1 << r_log
+    lhs = torch.from_numpy(ntt_mxu.dft_consts(
+        r_log, rc.fr_root_of_unity(r_log), 1, 1, 1)[0])
+    klhs = ntt_mxu.kernel_lhs(lhs)
+    groups = -(-r // 4)
+    assert klhs.shape == (256 * groups, 32 * r)
+    consts = ntt_mxu._consts(r_log, rc.fr_root_of_unity(r_log), 1, 1, 1,
+                             "cpu")
+    assert torch.equal(consts[0], lhs) and torch.equal(consts[3], klhs)
+    for g in range(groups):
+        for i in range(32):
+            for e in range(4):
+                for b in range(2):
+                    row = klhs[256 * g + 8 * i + 2 * e + b]
+                    k = 4 * g + e
+                    if k < r:
+                        assert torch.equal(row, lhs[64 * k + 2 * i + b])
+                    else:
+                        assert not row.any()
+
+
+def test_kernel_epilogue_on_the_host(host_lib):
+    """csrc/ntt_mxu.cu's addressing, digit mapping and epilogue
+    (bn254.cuh dft_addr, dft_limbs_to_fe) built with g++ through
+    csrc/host_check.cpp (the product as loops) equal the plain version."""
+    lib = host_lib
     for r_log, C, cout in ((1, 1, 1), (3, 4, 12), (7, 3, 3), (5, 2, 6)):
         r = 1 << r_log
         x = field.from_ints(FR, _rand(r_log + C, 3 * r * C), "cpu")
@@ -167,7 +316,7 @@ def test_kernel_epilogue_on_the_host(tmp_path):
         m = 3 * C
         want = ntt_mxu.dft_s8_plain(x, r_log, consts, C, cout)
         got = torch.empty_like(x)
-        lhs, corr, fold = consts
+        lhs, corr, fold = consts[:3]
         lib.hc_dft_s8(lhs.data_ptr(), corr.data_ptr(), fold.data_ptr(),
                       x.data_ptr(), got.data_ptr(), m, r_log, C, cout)
         assert torch.equal(got, want), (r_log, C, cout)

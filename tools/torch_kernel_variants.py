@@ -4,13 +4,13 @@
 
 (every source of VARIANTS unless some are named, e.g. `ntt quotient_forest`).
 
-A variant is a copy of one CUDA source of halo2_zkcert_tpu_torch/csrc with a
-few constants or one line changed by text substitution (a substitution that
-matches nothing fails the run, so the table cannot drift from the sources
-unnoticed).  Every variant is compiled with the flags of ops/kernels.py, all
-at once, loaded in place of the built library and timed through the
-committed wrappers at the shapes of chip_smoke.py and of the proof (CUDA
-events, warm).  Prints the card's name and power limit, each variant's
+A variant is a copy of one CUDA source of halo2_zkcert_tpu_torch/csrc (and
+of bn254.cuh) with a few constants or one line changed by text substitution
+(a substitution that matches nothing fails the run, so the table cannot
+drift from the sources unnoticed).  Every variant is compiled with the
+flags of ops/kernels.py, all at once, loaded in place of the built library
+and timed through the committed wrappers at the shapes of chip_smoke.py and
+of the proof (CUDA events, warm).  Prints the card's name and power limit, each variant's
 registers and spills, and one JSON line a variant.  The point scan's
 variants are also compared with the source as it stands, as affine points.
 
@@ -19,9 +19,13 @@ own checks, so each is also held against its plain version, exactly.
 
 Used to decide the tile shape of point_scan.cu, the staging of scan_madd.cu,
 the tile and block size of ntt.cu, where quotient_forest.cu keeps its slots,
-the block size of point_chain.cu, and whether the Montgomery product is
-inlined or called.  The chain kernels' variants are also compared with the
-source as it stands, word for word.
+the block size of point_chain.cu, whether the Montgomery product is
+inlined or called, and the data rows of ntt_mxu.cu (timed at
+the four-step's six base DFT launches beside torch._int_mm; its timing-only
+variants leave out the epilogue, a load stream or the product, to show
+what sets the pace).  The chain
+kernels' variants are also compared with the source as it stands, word for
+word.
 """
 from __future__ import annotations
 
@@ -92,6 +96,30 @@ VARIANTS = {
         "product_called": [(HEADER, CALL + "\n" + HEADER)],
         "4_elements_a_thread": [(FS_PPT, FS_PPT.replace("8", "4"))],
     },
+    "ntt_mxu": {
+        "as_built": [],
+        "32_byte_rows_at_cin_1": [(": cin == 1 ? DFT_TMA_J",
+                                   ": cin == 0 ? DFT_TMA_J")],
+        # timing only (wrong results): the epilogue's share
+        "no_reduction": [
+            ("dft_words_to_fe(v[0], f253, f506)", "load_fe(v[0])"),
+            ("dft_words_to_fe(v[1], f253, f506)", "load_fe(v[1])")],
+        "no_epilogue": [("if (k < r) {", "if (k < r && a.m < 0) {")],
+        "no_epilogue_no_data_loads": [
+            ("if (k < r) {", "if (k < r && a.m < 0) {"),
+            ("mbar_expect_tx(fb, DFT_STAGE_BYTES);",
+             "mbar_expect_tx(fb, DFT_LHS_BYTES);"),
+            ("tma_load_4d(smem_addr(dat_s + jj * DFT_SLAB_BYTES), dmap, fb, "
+             "c);", "(void)c;")],
+        "no_epilogue_no_lhs_loads": [
+            ("if (k < r) {", "if (k < r && a.m < 0) {"),
+            ("mbar_expect_tx(fb, DFT_STAGE_BYTES);",
+             "mbar_expect_tx(fb, DFT_TJ * DFT_SLAB_BYTES);"),
+            ("tma_load_2d(smem_addr(lhs_s), lmap, fb, c[0], c[1]);", "")],
+        "no_epilogue_no_product": [
+            ("if (k < r) {", "if (k < r && a.m < 0) {"),
+            ("        wgmma_rs(d, ", "        if (a.m < 0) wgmma_rs(d, ")],
+    },
     "quotient_forest": {
         "as_built": [],
         "slots_shared": [(HEADER, "#define H2T_TAPE_SLOTS_SHARED\n" + HEADER)],
@@ -101,6 +129,8 @@ VARIANTS = {
     },
 }
 TILES = {"6_points_a_thread": 768, "4_points_a_thread": 512}
+TIMING_ONLY = {"no_reduction", "no_epilogue", "no_epilogue_no_data_loads",
+               "no_epilogue_no_lhs_loads", "no_epilogue_no_product"}
 NTT_LOG_TILES = {"tile_2^11": 11, "tile_2^9": 9}
 FS_TILES = {"4_elements_a_thread": 512}
 
@@ -112,18 +142,24 @@ def build(root: str, sources) -> dict:
     for src in sources:
         variants = VARIANTS[src]
         text = (kernels.CSRC / f"{src}.cu").read_text()
+        header = (kernels.CSRC / "bn254.cuh").read_text()
         for name, subs in variants.items():
-            out = text
-            for old, new in subs:
-                if old not in out:
+            out, hdr = text, header
+            for old, new in subs:  # in the source, else in bn254.cuh
+                if old in out:
+                    out = out.replace(old, new)
+                elif old in hdr:
+                    hdr = hdr.replace(old, new)
+                else:
                     raise SystemExit(f"{src}/{name}: {old!r} not in the source")
-                out = out.replace(old, new)
             d = os.path.join(root, f"{src}_{name}")
             os.makedirs(d)
             with open(os.path.join(d, f"{src}.cu"), "w") as f:
                 f.write(out)
+            with open(os.path.join(d, "bn254.cuh"), "w") as f:
+                f.write(hdr)
             cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-Xptxas", "-v", "-I",
-                   str(kernels.CSRC), "-o", os.path.join(d, "lib.so"),
+                   d, "-o", os.path.join(d, "lib.so"),
                    os.path.join(d, f"{src}.cu")]
             procs.append((src, name, d, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -149,6 +185,34 @@ def build(root: str, sources) -> dict:
     return libs
 
 
+def time_ntt_mxu(dev, rng, libs) -> None:
+    """Each variant of csrc/ntt_mxu.cu at the six base DFT launches of the
+    four-step `intt` (8, 2^17) and `coset_ntt` (8, 2^17 -> 2^19), through
+    chip_smoke.py's record (every column against the plain version,
+    exactly; torch._int_mm on the same product in the same call); the
+    TIMING_ONLY variants, which leave out part of the epilogue, only
+    timed."""
+    from halo2_zkcert_tpu_torch.ops import ntt_mxu
+    a = cs.random_canonical(rng, 8 << 17, dev, rc.FR).reshape(8, 1 << 17, 8)
+    kernels._libs["ntt_mxu"] = next(iter(libs.values()))
+    launches = (cs._capture_dft_launches(lambda: ntt_mxu.intt(a, 17))
+                + cs._capture_dft_launches(lambda: ntt_mxu.coset_ntt(
+                    a, 19, rc.FR_GENERATOR, out_mont=True)))
+    for (src, name), lib in libs.items():
+        kernels._libs[src] = lib
+        row = {}
+        for i, launch in enumerate(launches):
+            key = f"dft{i}_r{1 << launch[1]}"
+            if name in TIMING_ONLY:
+                row[key + "_ms"] = cs.kernel_ms(
+                    lambda: ntt_mxu.dft_s8(*launch), 5)[0]
+                continue
+            r = cs._dft_record(key, launch)
+            row[key + "_ms"] = r["ms"]
+            row[key + "_int_mm_ms"] = r["library_ms"]
+        print(json.dumps({"source": src, "variant": name, **row}), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_variants: no CUDA device", file=sys.stderr)
@@ -158,6 +222,12 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as root:
         libs = build(root, sys.argv[1:] or list(VARIANTS))
         print(cs.card_line(), flush=True)
+        mxu = {k: v for k, v in libs.items() if k[0] == "ntt_mxu"}
+        if mxu:
+            time_ntt_mxu(dev, rng, mxu)
+        libs = {k: v for k, v in libs.items() if k[0] != "ntt_mxu"}
+        if not libs:
+            return 0
         B, nb = 4, (1 << 16) - 1
         P = cs.sample_points(dev, B * nb, rng).reshape(B, nb, 3, 8)
         empty = torch.from_numpy(rng.random((B, nb)) < 1 / 3).to(dev)
