@@ -169,6 +169,22 @@ Phases, each printing its own line:
      reported at level 1 (the identity at x: MISMATCH) and at level 3 (the
      recurrence: VIOLATED), a row of K4's output at level 4 (the window:
      MISMATCH);
+ 16. the big-domain prover path ("bigdomain": plonk/prover.py's
+     coset-separated quotient and big-domain residency): (a, after phase
+     15) the RSA k=17 proof forced onto it (H2T_EXT_BUDGET_BYTES=1,
+     H2T_U8_MIN_N=1) must equal build/rsa_1.proof, verify and reject a
+     flipped byte; (b, in phase 9) the gate-level k=19 proof
+     forced the same way must equal phase 9's; (c, in phase 10, right
+     after gen-x509-agg-proof) that snark's proof again, from the same key
+     and SRS and the witness columns its proof was given (kept on the
+     host), under the JAX package's budget and residency (2 GiB, 2^19)
+     with the card capped at 16 GiB: the same bytes, `verify_aggregated`
+     true and false for a flipped byte, its peak device memory and stage
+     seconds beside the one-shot proof's; (d, with the aggregation's kernel
+     shapes) K4 on the stride-1 aggregation tape over one coset's 2^20
+     rows against its plain version on the first 2^16 rows, and the
+     transforms of the 67 fresh columns at 2^20 onto a coset.  Where each
+     window table waited is printed after each proof;
  11. the kernels' launch counts on each driven path, each counted from 0
      just before the path and read just after: each TPU kernel (a record's
      "replaces") must have been launched in one of its forms on one of
@@ -202,7 +218,9 @@ Phases, each printing its own line:
      chain kernel, its first RSA proof
      the same with at most one point_windows (the monomial basis's table,
      built at its first use), each CLI SHA-256 proof quotient_forest once,
-     scan_madd and ntt; each accumulator toy proof quotient_forest once.  The [shapes] lines give the shapes the
+     scan_madd and ntt; each accumulator toy proof quotient_forest once;
+     each big-domain proof quotient_forest once a coset (4, 2, 4), ntt,
+     scan_madd, field_scan and no chain kernel.  The [shapes] lines give the shapes the
      point kernels, the transforms and the field scans were called with
      on each path.
 
@@ -445,29 +463,30 @@ def _exact(name, kern, plain):
 
 
 def check_ntt(device, k: int, cols: int, rng, ek=None, path=None,
-              plain_cols=None) -> list:
+              plain_cols=None, g=None, tag="") -> list:
     """The transforms of one proof at their shapes: the inverse transform of
     `cols` fresh columns at 2^k, their coset transform onto the extended
     domain 2^ek (default k + 2) from 2^k coefficients, Montgomery form out,
     and the inverse coset transform of one Montgomery-form column there.  A
     transform is k / 2 products an element whatever implements it.
     `plain_cols`: run the plain versions on slices of that many columns
-    (a transform is one column's), timed together."""
+    (a transform is one column's), timed together.  `g`: the coset's
+    generator (default the domain's); `tag`: added to the names."""
     from halo2_zkcert_tpu_torch.ops import ntt
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.utils import refcrypto as rc
-    n, g = 1 << k, rc.FR_GENERATOR
+    n, g = 1 << k, rc.FR_GENERATOR if g is None else g
     ek = k + 2 if ek is None else ek
     a = random_canonical(rng, cols * n, device, FR.modulus).reshape(cols, n, 8)
     h = random_canonical(rng, 1 << ek, device, FR.modulus)[None]
     cases = (
-        (f"ntt.inverse[{cols}x{n}]", lambda: ntt.intt(a, k),
+        (f"ntt.inverse[{cols}x{n}]{tag}", lambda: ntt.intt(a, k),
          lambda c0, c1: ntt.intt_plain(a[c0:c1], k), k, cols, n, n),
-        (f"ntt.coset.mont[{cols}x{n}->{1 << ek}]",
+        (f"ntt.coset.mont[{cols}x{n}->{1 << ek}]{tag}",
          lambda: ntt.coset_ntt(a, ek, g, out_mont=True),
          lambda c0, c1: ntt.coset_ntt_plain(a[c0:c1], ek, g, out_mont=True),
          ek, cols, n, 1 << ek),
-        (f"ntt.coset_inverse.mont[1x{1 << ek}]",
+        (f"ntt.coset_inverse.mont[1x{1 << ek}]{tag}",
          lambda: ntt.coset_intt(h, ek, g, in_mont=True),
          lambda c0, c1: ntt.coset_intt_plain(h, ek, g, in_mont=True), ek, 1,
          1 << ek, 1 << ek),
@@ -777,19 +796,21 @@ def check_affine_scans(device, shapes, rng) -> list:
 
 
 def check_quotient(device, cs, k: int, rng, name="quotient_forest",
-                   path=None, plain_rows=None) -> dict:
+                   path=None, plain_rows=None, coset=False) -> dict:
     """K4 on the tape of constraint system `cs` at 2^k rows over random
     Montgomery-form leaves of its extended domain, against its plain
-    version, exactly.  `path`: the driven path whose launches the record
-    reports.  `plain_rows`: hold only the first that many rows to the plain
-    version, run on that row slice with the rows its rotations read."""
+    version, exactly; with `coset`, on the stride-1 tape over the 2^k rows
+    of one coset (the coset-separated quotient's launch).  `path`: the
+    driven path whose launches the record reports.  `plain_rows`: hold only
+    the first that many rows to the plain version, run on that row slice
+    with the rows its rotations read."""
     from halo2_zkcert_tpu_torch.ops.field import FR
     from halo2_zkcert_tpu_torch.plonk import quotient
     from halo2_zkcert_tpu_torch.plonk.domain import Domain
     dom = Domain(k, cs.quotient_degree, str(device))
-    tape = quotient.compile_tape(cs, dom.n, dom.extended_n)
+    ext_n = dom.n if coset else dom.extended_n
+    tape = quotient.compile_tape(cs, dom.n, ext_n)
     L = len(quotient.leaf_layout(cs))
-    ext_n = dom.extended_n
     leaves = random_canonical(rng, L * ext_n, device,
                               FR.modulus).reshape(L, ext_n, 8)
     chal = random_canonical(rng, tape.num_challenges, device, FR.modulus)
@@ -1012,6 +1033,21 @@ def check_agg_shapes(device, rng) -> list:
     recs.append(check_quotient(device, vk.cs, vk.k, rng,
                                "quotient_forest[x509_agg tape]", proof,
                                plain_rows=1 << 18))
+    torch.cuda.empty_cache()
+    # phase 16 (d): the coset-separated quotient's launches at these
+    # shapes: K4 on the stride-1 tape over one coset's 2^20 rows, and the
+    # transforms of its largest conversion, the 67 fresh columns at 2^20,
+    # onto the coset g w_ext (the inverse transform timed at that width
+    # too; the proof stages those columns one call a column)
+    coset = "bigdomain_agg_proof"
+    recs.append(check_quotient(device, vk.cs, vk.k, rng,
+                               "quotient_forest[x509_agg tape, one coset]",
+                               coset, plain_rows=1 << 16, coset=True))
+    torch.cuda.empty_cache()
+    from halo2_zkcert_tpu_torch.utils import refcrypto as rc
+    g1 = rc.FR_GENERATOR * rc.fr_root_of_unity(22) % rc.FR
+    recs += check_ntt(device, 20, 67, rng, ek=20, path=coset, plain_cols=6,
+                      g=g1, tag=" one coset")
     torch.cuda.empty_cache()
     return recs
 
@@ -1557,6 +1593,13 @@ def sha256_gate_cli(device, card: str) -> dict:
         if again != proof or verdicts != want:
             raise AssertionError(f"sha256_gate_cli: H2T_SELFCHECK={level}: "
                                  f"{verdicts}")
+    # phase 16 (b): forced onto the big-domain path, the same bytes
+    _, launches["bigdomain_gate_proof"], _, _ = bigdomain_proof(
+        "gate-level k=19, forced", pk, lambda: create_proof(
+            params, pk, circ.advice, circ.instances, PoseidonTranscript()),
+        proof, FORCED_KNOBS, card)
+    log(f"[bigdomain] gate-level k=19, forced: window tables after it "
+        f"{json.dumps(parked_tables(params))}")
     return launches
 
 
@@ -1778,11 +1821,32 @@ def cli_aggregation(device, card: str, params, snark_dir: str, work: str,
         caught["peak_before_proof"] = torch.cuda.max_memory_allocated(device)
         held = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
+        first = "agg_recorded" not in caught
+        if first:
+            # the Poseidon snark (the first proof: the EVM proof's witness
+            # stays as it is): its key, SRS, instances and witness columns
+            # (copied to the host as the witness gives them) for phase 16
+            caught["agg_recorded"] = True
+            params_, pk, witness, instances = args[:4]
+            cols = {}
+
+            def recorded(phase, ch):
+                out = witness(phase, ch)
+                cols[phase] = (dict(ch), {i: c.cpu() for i, c in out.items()})
+                return out
+
+            args = (params_, pk, recorded, instances) + args[4:]
+            caught["agg"] = dict(params=params_, pk=pk, cols=cols,
+                                 instances=instances)
         out = real_proof(*args, **kwargs)
         torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(device)
+        if first:
+            caught["agg"].update(peak=peak,
+                                 stages=dict(prover.LAST_STAGE_TIMES))
         log(f"[x509_agg] create_proof: {held / 1e9:.2f} GB held on the card "
-            f"when it starts, {torch.cuda.max_memory_allocated(device) / 1e9:.2f}"
-            f" GB at its peak ({card})")
+            f"when it starts, {peak / 1e9:.2f} GB at its peak; its witness "
+            f"columns copied to the host for phase 16: {first} ({card})")
         return out
 
     def run(label, argv, path):
@@ -1835,6 +1899,9 @@ def cli_aggregation(device, card: str, params, snark_dir: str, work: str,
                         verify=lambda s: verify_aggregated(
                             params, s.vk, s.instances, s.proof,
                             PoseidonTranscript))
+            launches.update(bigdomain_agg(device, card, params, snark,
+                                          caught.pop("agg")))
+            torch.cuda.empty_cache()
             run("gen-x509-agg-evm-proof", ["gen-x509-agg-evm-proof",
                                            "--proof-path", evm_path,
                                            "--sol-path", sol_path],
@@ -2698,6 +2765,206 @@ def check_knobs(device, link, card: str) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the big-domain prover path
+# ---------------------------------------------------------------------------
+
+# the JAX package's defaults of the big-domain knobs
+# (halo2_zkcert_tpu/plonk/prover.py), set for the k=20 aggregation's proof
+JAX_KNOBS = {"H2T_EXT_BUDGET_BYTES": str(2 << 30),
+             "H2T_U8_MIN_N": str(1 << 19)}
+# the device memory that proof is capped at: the JAX package's TPU's
+CAP_BYTES = 16 << 30
+
+
+# the big-domain path forced: every set of one-shot leaves passes the
+# budget, every n takes the residency
+FORCED_KNOBS = {"H2T_EXT_BUDGET_BYTES": "1", "H2T_U8_MIN_N": "1"}
+
+
+class knobs_set:
+    """Set several environment variables for the block (`environ_set`)."""
+
+    def __init__(self, knobs: dict):
+        self.sets = [environ_set(k, v) for k, v in knobs.items()]
+
+    def __enter__(self):
+        for e in self.sets:
+            e.__enter__()
+
+    def __exit__(self, *exc):
+        for e in reversed(self.sets):
+            e.__exit__(*exc)
+
+
+def parked_tables(params) -> dict:
+    """Where each window table of `params` is after a proof: "device",
+    "file" (parked, read back from its file at its next use), "host"
+    (parked on the host) or None (never built)."""
+    out = {}
+    for tag in ("lagrange", "monomial"):
+        fb = params.__dict__.get(f"_parked_fb_{tag}")
+        if fb is not None:
+            out[tag] = "file" if fb.table_flat is None else "host"
+        else:
+            out[tag] = ("device" if f"_fb_{tag}" in params.__dict__
+                        else None)
+    return out
+
+
+def bigdomain_proof(label: str, pk, prove, want: bytes, knobs: dict,
+                    card: str, peaks=None) -> tuple:
+    """Phase 16: prove() under `knobs` (the big-domain path): its bytes
+    must equal `want` and K4 must run once a coset; the launch counts,
+    seconds and peak device memory of the proof (the largest of `peaks`
+    where the caller records them)."""
+    from halo2_zkcert_tpu_torch.ops import kernels
+    from halo2_zkcert_tpu_torch.plonk import prover
+    dom = pk.domain()
+    stride = dom.extended_n // dom.n
+    kernels.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with knobs_set(knobs):
+        t0 = time.perf_counter()
+        proof = prove()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    peak = max(peaks) if peaks else torch.cuda.max_memory_allocated() / 1e9
+    k4 = launches.get("quotient_forest", 0)
+    log(f"[bigdomain] {label}: proof {dt:.3f} s, device memory at its peak "
+        f"{peak:.2f} GB, {'equal to' if proof == want else 'DIFFERENT FROM'} "
+        f"the one-shot proof; quotient_forest {k4} (stride {stride}), ntt "
+        f"{launches.get('ntt', 0)}; stages "
+        f"{json.dumps(prover.LAST_STAGE_TIMES)}; knobs {json.dumps(knobs)} "
+        f"({card})")
+    if proof != want or k4 != stride:
+        raise AssertionError(f"bigdomain {label}: bytes equal "
+                             f"{proof == want}, quotient_forest {k4} for "
+                             f"stride {stride}")
+    return proof, launches, dt, peak
+
+
+def bigdomain_rsa(device, link, card: str) -> dict:
+    """Phase 16 (a): the RSA k=17 proof forced onto the big-domain path
+    equals build/rsa_1.proof, verifies and rejects a flipped byte."""
+    from halo2_zkcert_tpu_torch.bench import prove_rsa
+    from halo2_zkcert_tpu_torch.plonk import verify_proof
+    from halo2_zkcert_tpu_torch.sdk import Snark
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    params, circuit, pk, sig, digest = link
+    ref = Snark.read(os.path.join(REPO, "build", "rsa_1.proof"))
+    caught = {}
+
+    def prove():
+        proof, caught["instances"], _ = prove_rsa(params, circuit, pk, sig,
+                                                  digest, device)
+        return proof
+
+    proof, launches, _, _ = bigdomain_proof(
+        "rsa k=17, forced", pk, prove, ref.proof, FORCED_KNOBS, card)
+    ok = verify_proof(params, pk.vk, caught["instances"], proof,
+                      PoseidonTranscript)
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    rejected = not verify_proof(params, pk.vk, caught["instances"],
+                                bytes(bad), PoseidonTranscript)
+    log(f"[bigdomain] rsa k=17, forced: instances equal build/rsa_1.proof's: "
+        f"{caught['instances'] == ref.instances}; accepts the proof: {ok}; "
+        f"rejects a flipped byte: {rejected}; window tables after it "
+        f"{json.dumps(parked_tables(params))}")
+    if not (ok and rejected and caught["instances"] == ref.instances):
+        raise AssertionError("bigdomain rsa k=17: verifier or instances")
+    return {"bigdomain_rsa_proof": launches}
+
+
+def bigdomain_agg(device, card: str, params_verify, snark, agg: dict) -> dict:
+    """Phase 16 (c): the k=20 aggregation proof of gen-x509-agg-proof's
+    step again, from the same key and SRS, with the JAX package's knobs and
+    the card capped at 16 GiB (`torch.cuda.set_per_process_memory_fraction`
+    after `empty_cache`; an OOM fails the smoke): its witness columns are
+    those the one-shot proof's witness gave, kept on the host, at the same
+    challenges.  The bytes must equal that snark's, `verify_aggregated`
+    must accept them and reject a flipped byte; its peak device memory and
+    stage seconds (and each stage's peak) beside the one-shot proof's."""
+    from halo2_zkcert_tpu_torch.circuits.aggregation import verify_aggregated
+    from halo2_zkcert_tpu_torch.ops import ntt
+    from halo2_zkcert_tpu_torch.plonk import create_proof, prover
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    pk, params = agg["pk"], agg["params"]
+    with knobs_set(JAX_KNOBS):           # the proof's quotient chosen ahead:
+        prover.quotient_pipeline(pk)     # the one-shot one's columns go
+    ntt._tables.clear()                  # earlier phases' transform tables
+    # where the path leaves the monomial table after each of its proofs
+    params.park_fixed_base(lagrange=False)
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated(device)
+    total = torch.cuda.get_device_properties(device).total_memory
+    stage_peaks = []
+    real_sync = prover._sync
+
+    def sync(dev):                       # at each stage's tick
+        real_sync(dev)
+        stage_peaks.append(torch.cuda.max_memory_allocated(device) / 1e9)
+        reserved = torch.cuda.max_memory_reserved(device) / 1e9
+        torch.cuda.reset_peak_memory_stats(device)
+        held_now = torch.cuda.memory_allocated(device) / 1e9
+        log(f"[bigdomain] agg k=20: stage {len(stage_peaks)}: peak "
+            f"{stage_peaks[-1]:.2f} GB allocated, {reserved:.2f} GB "
+            f"reserved; {held_now:.2f} GB held after it")
+
+    def replay(phase, ch):
+        want_ch, cols = agg["cols"][phase]
+        if ch != want_ch:
+            raise AssertionError(f"bigdomain agg: phase {phase} challenges "
+                                 f"differ from the one-shot proof's")
+        return cols
+
+    log(f"[bigdomain] agg k=20: {held / 1e9:.2f} GB held on the card before "
+        f"the proof (key, SRS, the Lagrange window table); cap "
+        f"{CAP_BYTES / 2**30:.0f} GiB of {total / 2**30:.2f} GiB")
+    torch.cuda.set_per_process_memory_fraction(CAP_BYTES / total, device)
+    prover._sync = sync
+    try:
+        torch.cuda.reset_peak_memory_stats(device)
+        proof, launches, dt, _ = bigdomain_proof(
+            "agg k=20, the JAX package's knobs, 16 GiB cap", pk,
+            lambda: create_proof(params, pk, replay, agg["instances"],
+                                 PoseidonTranscript()),
+            snark.proof, JAX_KNOBS, card, stage_peaks)
+    finally:
+        prover._sync = real_sync
+        torch.cuda.set_per_process_memory_fraction(1.0, device)
+    stages = dict(prover.LAST_STAGE_TIMES)
+    peaks = dict(zip(stages, stage_peaks))
+    peak = max(stage_peaks)
+    ok = verify_aggregated(params_verify, snark.vk, snark.instances, proof,
+                           PoseidonTranscript)
+    bad = bytearray(proof)
+    bad[len(bad) // 2] ^= 1
+    try:
+        rejected = not verify_aggregated(params_verify, snark.vk,
+                                         snark.instances, bytes(bad),
+                                         PoseidonTranscript)
+    except (AssertionError, ValueError):
+        rejected = True                           # an undecodable point
+    chains = [k for k in ("point_double", "point_add_mixed", "point_windows",
+                          "point_horner", "point_fixed_mul",
+                          "point_scan_affine") if launches.get(k, 0)]
+    log(f"[bigdomain] agg k=20: capped proof {dt:.3f} s, peak {peak:.2f} GB "
+        f"(each stage's {json.dumps(peaks)}), stages {json.dumps(stages)}; "
+        f"the one-shot proof: peak {agg['peak'] / 1e9:.2f} GB, stages "
+        f"{json.dumps(agg['stages'])} (its phase commits include the witness "
+        f"columns' copies to the host); verify_aggregated accepts: {ok}, "
+        f"rejects a flipped byte: {rejected}; chain kernels launched: "
+        f"{chains}; window tables after it "
+        f"{json.dumps(parked_tables(params))} ({card})")
+    if not (ok and rejected) or chains or peak * 1e9 > CAP_BYTES:
+        raise AssertionError(f"bigdomain agg k=20: verify {ok}, rejects "
+                             f"{rejected}, chain kernels {chains}")
+    return {"bigdomain_agg_proof": launches}
+
+
 def check_launches(launches: dict) -> None:
     """The launch counts each driven path must keep (module docstring)."""
     fb = launches["fixed_base_proof"]
@@ -2762,7 +3029,17 @@ def check_launches(launches: dict) -> None:
                 and not any(p.get(k, 0) for k in chains
                             if k not in ("point_windows", "point_fixed_mul")))
 
+    big = {p: launches[f"bigdomain_{p}_proof"] for p in ("rsa", "gate",
+                                                          "agg")}
     rules = (
+        ("the big-domain proofs (phase 16): quotient_forest once a coset "
+         "(RSA k=17 4, gate-level k=19 2, aggregation k=20 4), ntt, "
+         "scan_madd, field_scan, no chain kernel (no window table built)",
+         all(p.get("quotient_forest", 0) == stride and p.get("ntt", 0)
+             and p.get("scan_madd", 0) and p.get("field_scan", 0)
+             and not any(p.get(k, 0) for k in chains)
+             for p, stride in ((big["rsa"], 4), (big["gate"], 2),
+                               (big["agg"], 4)))),
         ("H2T_SELFCHECK=3's proof: more field_binop.sub and .mul than the "
          "fixed-base proof (the recurrences' residuals on K1)",
          sc3.get("field_binop.sub", 0) > fb.get("field_binop.sub", 0)
@@ -2981,6 +3258,7 @@ def main() -> int:
             f"{plan['l2_bytes'] / 1e9:.3f} GB (the boxes' bytes from the tile "
             f"shape, not measured); {card})")
     launches.update(check_knobs(device, link, card))
+    launches.update(bigdomain_rsa(device, link, card))
     torch.cuda.empty_cache()
     launches["sharded_proof"] = check_sharded(card, params_dir)
     launches["keygen_rsa"] = check_keygen_rsa(device, params, circuit, card)
@@ -3048,7 +3326,9 @@ def main() -> int:
              "selfcheck3_proof", "eval_coeff_proof",
              "x509_agg_setup", "x509_agg_keygen",
              "x509_agg_mock", "x509_agg_proof", "x509_agg_evm_proof",
-             "acc_toy_good_proof", "acc_toy_bad_proof")
+             "acc_toy_good_proof", "acc_toy_bad_proof",
+             "bigdomain_rsa_proof", "bigdomain_gate_proof",
+             "bigdomain_agg_proof")
     for path in paths:
         log(f"[launches] {path}: "
             f"{json.dumps(launches[path], sort_keys=True)}")

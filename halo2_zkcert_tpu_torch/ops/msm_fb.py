@@ -294,7 +294,25 @@ class FixedBaseMsm:
         self.n = base_affine.shape[0]
         self.wbits = wbits
         self.nwin = _nwin(wbits)
+        self.cache_path = cache_path
         self.table_flat = load_or_build_tables(base_affine, wbits, cache_path)
+
+    def park(self) -> None:
+        """Free the tables' device memory until `unpark`: dropped where
+        their file holds them, else moved to the host."""
+        if self.cache_path and os.path.exists(self.cache_path):
+            self.table_flat = None
+        else:
+            self.table_flat = self.table_flat.cpu()
+
+    def unpark(self, base_affine: torch.Tensor) -> None:
+        """The tables back on `base_affine`'s device: read from their file,
+        or copied from the host."""
+        if self.table_flat is None:
+            self.table_flat = load_or_build_tables(base_affine, self.wbits,
+                                                   self.cache_path)
+        else:
+            self.table_flat = self.table_flat.to(base_affine.device)
 
     def __call__(self, scalars: torch.Tensor) -> torch.Tensor:
         """scalars (n, 8) canonical Fr words -> projective point (3, 8)."""

@@ -164,15 +164,23 @@ def _scale_table(key: tuple, device, make) -> torch.Tensor:
 
 
 def run_passes(launch, a: torch.Tensor, k: int, tw: torch.Tensor, in_scale,
-               out_scale, log_tile: int | None = None) -> torch.Tensor:
+               out_scale, log_tile: int | None = None,
+               out: torch.Tensor | None = None) -> torch.Tensor:
     """Drive `launch` (h2t_ntt_pass without its stream) through the passes
-    of one transform of the columns `a` (..., n_in <= 2^k, 8)."""
+    of one transform of the columns `a` (..., n_in <= 2^k, 8), into `out`
+    (a new tensor unless given: contiguous int32 (..., 2^k, 8) on a's
+    device, not overlapping a)."""
     n, n_in = 1 << k, a.shape[-2]
     if n_in > n or a.shape[-1] != 8:
         raise ValueError(f"ntt: expected (..., n <= {n}, 8), got "
                          f"{tuple(a.shape)}")
     lead = a.shape[:-2]
-    out = torch.empty(lead + (n, 8), dtype=torch.int32, device=a.device)
+    if out is None:
+        out = torch.empty(lead + (n, 8), dtype=torch.int32, device=a.device)
+    elif (out.shape != lead + (n, 8) or out.dtype != torch.int32
+          or out.device != a.device or not out.is_contiguous()):
+        raise ValueError(f"ntt: out must be contiguous int32 "
+                         f"{tuple(lead + (n, 8))} on {a.device}")
     B = math.prod(lead)
 
     def ptr(t):
@@ -190,7 +198,7 @@ def run_passes(launch, a: torch.Tensor, k: int, tw: torch.Tensor, in_scale,
 
 
 def _transform(a: torch.Tensor, k: int, inverse: bool, in_scale=None,
-               out_scale=None) -> torch.Tensor:
+               out_scale=None, out=None) -> torch.Tensor:
     a = a.contiguous()
     tw = _twiddles(k, inverse, a.device)
     tables = [t for t in (tw, in_scale, out_scale) if t is not None]
@@ -202,7 +210,7 @@ def _transform(a: torch.Tensor, k: int, inverse: bool, in_scale=None,
         kernels.launches["ntt"] += 1
         return lib.h2t_ntt_pass(*args, stream)
 
-    return run_passes(launch, a, k, tw, in_scale, out_scale)
+    return run_passes(launch, a, k, tw, in_scale, out_scale, out=out)
 
 
 def _mxu():
@@ -226,34 +234,45 @@ def ntt(a: torch.Tensor, k: int) -> torch.Tensor:
     return _transform(a, k, False)
 
 
-def intt(a: torch.Tensor, k: int) -> torch.Tensor:
-    """Inverse NTT, including the 1/n scaling."""
+def _into(res: torch.Tensor, out: torch.Tensor | None) -> torch.Tensor:
+    """`res` copied into `out` where one is given: the routes that do not
+    write in place (the plain versions, the four-step)."""
+    if out is None:
+        return res
+    out.copy_(res)
+    return out
+
+
+def intt(a: torch.Tensor, k: int, out: torch.Tensor | None = None
+         ) -> torch.Tensor:
+    """Inverse NTT, including the 1/n scaling; into `out` when given."""
     if (mxu := _mxu()) is not None:
-        return mxu.intt(a, k)
+        return _into(mxu.intt(a, k), out)
     if a.device.type == "cpu":
-        return intt_plain(a, k)
+        return _into(intt_plain(a, k), out)
     n_inv = _scale_table(("n_inv", k), a.device, lambda: field.const_mont(
         FR, pow(1 << k, rc.FR - 2, rc.FR), a.device)[None])
-    return _transform(a, k, True, out_scale=n_inv)
+    return _transform(a, k, True, out_scale=n_inv, out=out)
 
 
-def coset_ntt(a: torch.Tensor, k: int, g: int,
-              out_mont: bool = False) -> torch.Tensor:
+def coset_ntt(a: torch.Tensor, k: int, g: int, out_mont: bool = False,
+              out: torch.Tensor | None = None) -> torch.Tensor:
     """Evaluate coefficients `a` on the coset g*H; an `a` shorter than 2^k
     stands for its zero-padded self.  With `out_mont` the values leave in
     Montgomery form (x * R), at no cost: the transform is linear and the
-    table of powers carries the factor."""
+    table of powers carries the factor.  Into `out` when given (a slice of
+    a larger buffer: the coset-separated quotient's leaves)."""
     if (mxu := _mxu()) is not None:
-        return mxu.coset_ntt(a, k, g, out_mont)
+        return _into(mxu.coset_ntt(a, k, g, out_mont), out)
     if a.device.type == "cpu":
-        return coset_ntt_plain(a, k, g, out_mont)
+        return _into(coset_ntt_plain(a, k, g, out_mont), out)
 
     def make():
         t = power_table(g, 1 << k, a.device, mont=True)        # g^j R
         return field.to_mont(FR, t) if out_mont else t          # g^j R^2
 
     return _transform(a, k, False, in_scale=_scale_table(
-        ("coset", k, g % rc.FR, out_mont), a.device, make))
+        ("coset", k, g % rc.FR, out_mont), a.device, make), out=out)
 
 
 def coset_intt(a: torch.Tensor, k: int, g: int,

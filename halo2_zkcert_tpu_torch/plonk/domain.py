@@ -97,23 +97,49 @@ class Domain:
         sharded_counts["sharded"] += 1
         return transform_gathered(a, k, mesh, inverse, g, mont)
 
-    def lagrange_to_coeff(self, values: torch.Tensor) -> torch.Tensor:
-        out = self._over_mesh(values, self.k, True)
-        return ntt.intt(values, self.k) if out is None else out
+    def lagrange_to_coeff(self, values: torch.Tensor,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+        """Into `out` when given."""
+        res = self._over_mesh(values, self.k, True)
+        if res is None:
+            return ntt.intt(values, self.k, out=out)
+        return ntt._into(res, out)
 
     def coeff_to_lagrange(self, coeffs: torch.Tensor) -> torch.Tensor:
         out = self._over_mesh(coeffs, self.k, False)
         return ntt.ntt(coeffs, self.k) if out is None else out
 
-    def coeff_to_extended(self, coeffs: torch.Tensor,
-                          out_mont: bool = False) -> torch.Tensor:
+    def coeff_to_extended(self, coeffs: torch.Tensor, out_mont: bool = False,
+                          out: torch.Tensor | None = None) -> torch.Tensor:
         """(..., n, 8) coefficients -> (..., ext_n, 8) coset values (the
-        transform pads with zeros); in Montgomery form with `out_mont`."""
+        transform pads with zeros); in Montgomery form with `out_mont`;
+        into `out` when given."""
         ek = self.extended_k
-        out = self._over_mesh(coeffs, ek, False, self.G_COSET, out_mont)
-        if out is None:
-            out = ntt.coset_ntt(coeffs, ek, self.G_COSET, out_mont)
-        return out
+        res = self._over_mesh(coeffs, ek, False, self.G_COSET, out_mont)
+        if res is None:
+            return ntt.coset_ntt(coeffs, ek, self.G_COSET, out_mont, out=out)
+        return ntt._into(res, out)
+
+    def coeff_to_coset(self, coeffs: torch.Tensor, g: int,
+                       out_mont: bool = False,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+        """(..., n, 8) coefficients -> their values on the size-n coset g*H
+        (the coset-separated quotient's conversion), into `out` when
+        given."""
+        res = self._over_mesh(coeffs, self.k, False, g, out_mont)
+        if res is None:
+            return ntt.coset_ntt(coeffs, self.k, g, out_mont, out=out)
+        return ntt._into(res, out)
+
+    def coset_to_coeff(self, values: torch.Tensor, g: int,
+                       in_mont: bool = False) -> torch.Tensor:
+        """(..., n, 8) values on the size-n coset g*H (Montgomery form with
+        `in_mont`) -> canonical coefficients c_d with sum_d c_d (g w^t)^d
+        equal to them: the inverse of `coeff_to_coset`."""
+        res = self._over_mesh(values, self.k, True, g, in_mont)
+        if res is None:
+            return ntt.coset_intt(values, self.k, g, in_mont)
+        return res
 
     def extended_to_coeff(self, values: torch.Tensor,
                           in_mont: bool = False) -> torch.Tensor:

@@ -68,10 +68,31 @@ class ProvingKey:
 
     @property
     def device(self) -> torch.device:
-        return self.fixed_lagrange.device
+        parked = self.__dict__.get("_parked_device")
+        return parked if parked is not None else self.fixed_lagrange.device
 
     def domain(self) -> Domain:
         return self.vk.domain(self.device)
+
+    def park_lagrange(self) -> None:
+        """Take the Lagrange columns off the device until `restore_lagrange`
+        (the prover's big-domain residency: nothing reads them through the
+        quotient).  Their host copies are made at the first park and kept
+        for the next; `device` stays the card's meanwhile."""
+        if self.fixed_lagrange is None:
+            return
+        self.__dict__["_parked_device"] = self.fixed_lagrange.device
+        if "_host_lagrange" not in self.__dict__:
+            self.__dict__["_host_lagrange"] = (self.fixed_lagrange.cpu(),
+                                               self.sigma_lagrange.cpu())
+        self.fixed_lagrange = self.sigma_lagrange = None
+
+    def restore_lagrange(self) -> None:
+        if self.fixed_lagrange is not None:
+            return
+        dev = self.__dict__.pop("_parked_device")
+        fixed, sigma = self.__dict__["_host_lagrange"]
+        self.fixed_lagrange, self.sigma_lagrange = fixed.to(dev), sigma.to(dev)
 
 
 def vk_to_dict(vk: VerifyingKey) -> dict:

@@ -80,9 +80,13 @@ class ParamsKZG:
     def fixed_base(self, lagrange: bool) -> FixedBaseMsm:
         """The flat-Pippenger tables of one SRS basis (ops/msm_fb.py), built
         at first use; kept on this object and, where $PARAMS_DIR (default
-        ./params) exists, in a file beside the SRS cache."""
+        ./params) exists, in a file beside the SRS cache; brought back to
+        the device here after `park_fixed_base`."""
         attr = "_fb_lagrange" if lagrange else "_fb_monomial"
         fb = self.__dict__.get(attr)
+        if fb is None and (fb := self.__dict__.pop("_parked" + attr, None)):
+            fb.unpark(self.g_lagrange if lagrange else self.g)
+            self.__dict__[attr] = fb
         if fb is None:
             d = os.environ.get("PARAMS_DIR", "./params")
             tag = "lag" if lagrange else "mono"
@@ -93,6 +97,17 @@ class ParamsKZG:
                               wbits=FB_WBITS, cache_path=cache)
             self.__dict__[attr] = fb
         return fb
+
+    def park_fixed_base(self, lagrange: bool) -> None:
+        """Free the device memory of one basis's tables until its next
+        `fixed_base` call (the prover's big-domain residency): where their
+        file holds them they are read back from it then, else they wait on
+        the host.  Tables that were never built stay unbuilt."""
+        attr = "_fb_lagrange" if lagrange else "_fb_monomial"
+        fb = self.__dict__.pop(attr, None)
+        if fb is not None:
+            fb.park()
+            self.__dict__["_parked" + attr] = fb
 
     # ---- serialization -------------------------------------------------------
 

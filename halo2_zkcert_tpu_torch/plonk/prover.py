@@ -1,13 +1,56 @@
 """PLONKish prover: create_proof.
 
-Counterpart of halo2_zkcert_tpu/plonk/prover.py on its one-shot,
-small-residency path: phase advice commits -> lookup permute and commit ->
-permutation and lookup grand products (all Z columns in one batched pass)
--> vanishing random poly -> quotient on the extended coset (the forest as
-one K4 launch) -> barycentric evaluations at x -> SHPLONK multiopen.  Every
-O(n) step is a device op on the proving key's device; the Fiat-Shamir
-transcript and per-poly scalar glue stay on the host.  Given the same pk,
-witness, instances and blinding seed the proof bytes equal the reference's.
+Counterpart of halo2_zkcert_tpu/plonk/prover.py: phase advice commits ->
+lookup permute and commit -> permutation and lookup grand products ->
+vanishing random poly -> quotient -> barycentric evaluations at x -> SHPLONK
+multiopen.  Every O(n) step is a device op on the proving key's device; the
+Fiat-Shamir transcript and per-poly scalar glue stay on the host.  Given the
+same pk, witness, instances and blinding seed the proof bytes equal the
+reference's, whichever path below the proof takes.
+
+The quotient takes one of two paths, chosen at each call:
+  one-shot         (`_Quotient`) the pk's fixed, sigma and aux columns kept
+                   on the extended coset, the fresh columns transformed onto
+                   it, the forest as one K4 launch over all ext_n rows;
+  coset-separated  (`_QuotientCoset`, the reference's `_quotient_fn_coset`)
+                   where the one-shot leaves (`leaf_bytes`: leaves x ext_n x
+                   32 B) pass the budget (`ext_budget_bytes`).  Every
+                   rotation is a multiple of the stride ext_n / n, so the
+                   quotient splits into one size-n pass a coset g w_ext^c H:
+                   the leaves converted onto it into one reused (L, n, 8)
+                   buffer and K4 on the stride-1 tape; the pieces come back
+                   through a coset inverse transform a coset and a stride x
+                   stride inverse DFT across them.  The device then holds one
+                   coset's leaves and the fresh columns' coefficient forms,
+                   nothing ext_n rows long.
+From H2T_U8_MIN_N rows on, the big-domain residency (the reference's
+`_shrink`; its u8 form has no counterpart: 8 canonical words are already the
+size of its 33 bytes): the grand products one Z at a time; the Lagrange
+window table parked through the quotient and the monomial one after the h
+commitments (`ParamsKZG.park_fixed_base`: read back from its file, or from
+the host); the key's Lagrange columns on the host through the quotient
+(`ProvingKey.park_lagrange`; its coefficient forms stay on the card, where
+every coset reads them); on the coset path the witness columns on the host
+from the end of the coefficient staging to the evaluations (not under
+H2T_SELFCHECK, as in the reference).
+
+The big-domain knobs: the reference's names and meanings, read at each call.
+The port's defaults keep every circuit it has driven on the one-shot path and
+its residency; the reference's are set for a 16 GB TPU:
+  H2T_EXT_BUDGET_BYTES  unset: the device's memory over
+                        ONE_SHOT_PEAK_PER_LEAF_BYTE (35.2 GiB on an 80 GB
+                        H100; reference 2 GiB of its 132-byte int32 limbs):
+                        one-shot leaf bytes above it take the coset path.
+                        The k=20 aggregation's 157 leaves over 2^22 rows are
+                        19.6 GiB.
+  H2T_U8_MIN_N          2^21 (reference 2^19): the big-domain residency
+                        from this many rows on.
+The reference's H2T_NTT_GROUP_BYTES and H2T_EVAL_GROUP_BYTES bound its
+radix-2 program's temporaries and its evaluation batches; ntt.cu writes each
+transform straight into its slice of the leaves with no scratch, and the
+evaluations go 16 pairs a batch, so the port has neither.
+The reference's H2T_MULTIOPEN=eager (a device op at a time in the multiopen,
+for big n) has no switch here: `open_shplonk` always works that way.
 
 The reference's debugging knobs, read from the environment at each call
 and off by default; they print the reference's lines and change no byte:
@@ -16,8 +59,9 @@ and off by default; they print the reference's lines and change no byte:
                  2: and advice0, sigma0 and h evaluated at x on the host
                  (barycentric), the collapsed h by Horner; 3: and the grand
                  products' recurrences over H (K1 residuals on the device);
-                 4, 5: and h over 8 extended rows recomputed with Python
-                 ints from K4's own leaves (`_oracle_quotient_window`).
+                 4, 5: and h over 8 rows of K4's launch (the extended
+                 domain, or the first coset) recomputed with Python ints
+                 from K4's own leaves (`_oracle_quotient_window`).
                  The verdicts also land in LAST_SELFCHECK.
   H2T_EVAL_MODE  coeff: the evaluations from coefficient forms (inverse
                  transform, then `frops.poly_eval_many`).
@@ -43,6 +87,11 @@ from .kzg import ParamsKZG, commit_many, commit_many_lagrange
 from .quotient import AUX, compile_tape, leaf_layout, quotient_forest
 from .shplonk import ProverQuery, open_shplonk
 
+# the big-domain knobs' defaults (module docstring).  A one-shot proof's peak
+# device memory over its leaf bytes: 47.32 GB for the k=20 aggregation's
+# 21.07 GB of leaves on an H100 (chip_smoke.py phase 10, PERF.md).
+ONE_SHOT_PEAK_PER_LEAF_BYTE = 2.25
+U8_MIN_N = 1 << 21
 # Per-stage wall seconds of the LAST create_proof call (device-synchronized
 # at each stage boundary).
 LAST_STAGE_TIMES: dict = {}
@@ -113,22 +162,16 @@ def _compress(exprs, theta: int, leaf_eval) -> torch.Tensor:
     return acc
 
 
-def _grand_products(pk: ProvingKey, perm_vals, lookups, beta: int,
-                    gamma: int, blinds) -> tuple:
-    """Every permutation-chunk Z (chained across chunks) and every lookup
-    Z, blinding rows set; one batched inversion and one batched prefix
-    product for all of them.  Returns (the Zs, their numerators and
-    denominators stacked, (Z count, n, 8) each, or None without Zs)."""
+def _gp_terms(pk: ProvingKey, perm_vals, lookups, beta: int, gamma: int):
+    """Each Z's numerator and denominator columns, in commitment order:
+    the permutation chunks, then the lookups."""
     csys = pk.vk.cs
     dom = pk.domain()
-    n, dev = dom.n, pk.device
-    bf = csys.blinding_factors()
-    u_row = n - bf - 1
+    dev = pk.device
     chunk_len = csys.permutation_chunk_len()
     nperm = len(csys.permutation_columns)
     beta_t, gamma_t = field.const(FR, beta, dev), field.const(FR, gamma, dev)
     ob = field.mul_const(FR, dom.omega_pows_device, beta)
-    nums, dens = [], []
     for ci in range(csys.num_permutation_chunks()):
         num = den = None
         for gpos in range(ci * chunk_len, min(nperm, (ci + 1) * chunk_len)):
@@ -141,32 +184,70 @@ def _grand_products(pk: ProvingKey, perm_vals, lookups, beta: int,
                 gamma_t)
             num = t_num if num is None else field.mul(FR, num, t_num)
             den = t_den if den is None else field.mul(FR, den, t_den)
-        nums.append(num)
-        dens.append(den)
+        yield num, den
     for lk in lookups:
-        nums.append(field.mul(FR, field.add(FR, lk["a"], beta_t),
-                              field.add(FR, lk["s"], gamma_t)))
-        dens.append(field.mul(FR, field.add(FR, lk["a_perm"], beta_t),
-                              field.add(FR, lk["s_perm"], gamma_t)))
-    if not nums:
-        return [], None, None
-    num, den = torch.stack(nums), torch.stack(dens)
+        yield (field.mul(FR, field.add(FR, lk["a"], beta_t),
+                         field.add(FR, lk["s"], gamma_t)),
+               field.mul(FR, field.add(FR, lk["a_perm"], beta_t),
+                         field.add(FR, lk["s_perm"], gamma_t)))
+
+
+def _units(num: torch.Tensor, den: torch.Tensor) -> torch.Tensor:
+    """(m, n, 8) numerators and denominators -> each Z before chaining:
+    the prefix products of [1, num/den ...], one batched inversion."""
     ratio = field.mul(FR, num, frops.batch_inv(den.reshape(-1, 8))
                       .reshape(den.shape))
-    one = field.one(dev, (len(nums), 1))
-    zs = frops.prefix_product_batched(torch.cat((one, ratio[:, :-1]), dim=1))
+    one = field.one(num.device, (num.shape[0], 1))
+    return frops.prefix_product_batched(torch.cat((one, ratio[:, :-1]),
+                                                  dim=1))
+
+
+def _grand_products(pk: ProvingKey, perm_vals, lookups, beta: int,
+                    gamma: int, blinds, streamed: bool = False,
+                    keep: bool = True) -> tuple:
+    """Every permutation-chunk Z (chained across chunks) and every lookup
+    Z, blinding rows set: all in one batched inversion and prefix product,
+    or with `streamed` one Z at a time (the big-domain residency: one Z's
+    columns live at once, the reference's streaming pass).  Returns (the
+    Zs, their numerators and denominators: stacked (Z count, n, 8), or
+    lists when streamed, None without Zs or, streamed, without `keep`)."""
+    csys = pk.vk.cs
+    n = pk.domain().n
+    bf = csys.blinding_factors()
+    u_row = n - bf - 1
+    num_chunks = csys.num_permutation_chunks()
+    terms = _gp_terms(pk, perm_vals, lookups, beta, gamma)
+    if streamed:
+        nums, dens = ([], []) if keep else (None, None)
+
+        def units():
+            for num, den in terms:
+                if keep:
+                    nums.append(num)
+                    dens.append(den)
+                yield _units(num[None], den[None])[0]
+        zs = units()
+    else:
+        pairs = list(terms)
+        if not pairs:
+            return [], None, None
+        nums = torch.stack([p[0] for p in pairs])
+        dens = torch.stack([p[1] for p in pairs])
+        del pairs
+        zs = _units(nums, dens)
     outs = []
     start = None
-    for i in range(len(nums)):
-        z = zs[i]
-        if i < csys.num_permutation_chunks() and start is not None:
+    for i, z in enumerate(zs):
+        if i < num_chunks and start is not None:
             z = field.mul(FR, z, start)
-        if i < csys.num_permutation_chunks():
+        if i < num_chunks:
             start = z[u_row].clone()
         z = z.clone()
         z[n - bf:] = blinds[i]
         outs.append(z)
-    return outs, num, den
+    if not outs:
+        return [], None, None
+    return outs, nums, dens
 
 
 def _selfcheck_grand_products(perm_zs, lookup_zs, num, den, u_row) -> None:
@@ -195,72 +276,242 @@ def _selfcheck_grand_products(perm_zs, lookup_zs, num, den, u_row) -> None:
         check(recurrence(len(perm_zs) + li, z), f"lookup{li}_z recurrence")
 
 
+def _env_int(name: str, default):
+    v = os.environ.get(name)
+    return default if v is None else int(v)
+
+
+def leaf_bytes(csys, ext_n: int) -> int:
+    """Bytes of the one-shot quotient's leaves: every leaf column over the
+    extended domain, 8 words a value."""
+    return len(leaf_layout(csys)) * ext_n * 32
+
+
+def device_memory(device) -> int:
+    """Bytes of memory on `device`: a card's total, or the host's."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return torch.cuda.get_device_properties(device).total_memory
+    return os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+
+
+def ext_budget_bytes(device) -> int:
+    """H2T_EXT_BUDGET_BYTES, else the most one-shot leaf bytes whose proof
+    fits `device`'s memory."""
+    return _env_int("H2T_EXT_BUDGET_BYTES", int(
+        device_memory(device) / ONE_SHOT_PEAK_PER_LEAF_BYTE))
+
+
+def coset_quotient_wanted(csys, ext_n: int, device) -> bool:
+    """Whether a proof on `device` takes the coset-separated quotient now."""
+    return leaf_bytes(csys, ext_n) > ext_budget_bytes(device)
+
+
+def big_domain(n: int) -> bool:
+    """Whether a proof over n rows takes the big-domain residency now
+    (H2T_U8_MIN_N)."""
+    return n >= _env_int("H2T_U8_MIN_N", U8_MIN_N)
+
+
+def _stage(fn, cols: list, out: torch.Tensor) -> torch.Tensor:
+    """fn(col, out=out[i]) for each column of the list: no stacked copy."""
+    for i, col in enumerate(cols):
+        fn(col, out=out[i])
+    return out
+
+
+def _aux_basis(dom, u_row: int, device) -> torch.Tensor:
+    """l0, l_last and l_blind in coefficient form, (3, n, 8)."""
+    basis = torch.zeros((3, dom.n, 8), dtype=torch.int32, device=device)
+    basis[0, 0, 0] = 1
+    basis[1, u_row, 0] = 1
+    basis[2, u_row + 1:, 0] = 1
+    return dom.lagrange_to_coeff(basis)
+
+
+def _tick2(tag: str, device, t_last: list):
+    """H2T_PROFILE2's `[<tag>] <stage>: <s>` lines, device-synchronized."""
+    def tick(stage):
+        if os.environ.get("H2T_PROFILE2"):
+            _sync(device)
+            t = time.perf_counter()
+            print(f"    [{tag}] {stage}: {t - t_last[0]:.3f}s", flush=True)
+            t_last[0] = t
+    return tick
+
+
 class _Quotient:
-    """Per-pk quotient pipeline: the pk's extended columns (kept in
+    """Per-pk one-shot quotient pipeline: the pk's extended columns (kept in
     Montgomery form, what K4 reads) and the tape are built once; each proof
-    transforms its fresh columns onto the coset in that form, runs K4 and
-    hands its result to the inverse transform as it is."""
+    transforms its fresh columns onto the coset in that form, runs K4 over
+    the whole extended domain and hands its result to the inverse transform
+    as it is."""
 
     def __init__(self, pk: ProvingKey):
         csys = pk.vk.cs
         dom = pk.domain()
         n, ext_n, dev = dom.n, dom.extended_n, pk.device
         self.dom, self.csys = dom, csys
+        self.stride = ext_n // n
         self.tape = compile_tape(csys, n, ext_n)
         self.layout = leaf_layout(csys)
-        self.u_row = u_row = n - csys.blinding_factors() - 1
-        basis = torch.zeros((3, n, 8), dtype=torch.int32, device=dev)
-        basis[0, 0, 0] = 1
-        basis[1, u_row, 0] = 1
-        basis[2, u_row + 1:, 0] = 1
-        aux = dom.coeff_to_extended(dom.lagrange_to_coeff(basis), True)
+        self.u_row = n - csys.blinding_factors() - 1
+        nf, ns = pk.fixed_coeff.shape[0], pk.sigma_coeff.shape[0]
+        self.static = torch.empty((nf + ns + len(AUX), ext_n, 8),
+                                  dtype=torch.int32, device=dev)
+        assert self.static.shape[0] == self.layout[("aux", AUX[-1])] + 1
+        parts = self.static.split([nf, ns, 3, 2])
+
+        def ext(c, out):
+            return dom.coeff_to_extended(c, True, out=out)
+
+        ext(pk.fixed_coeff, parts[0])
+        ext(pk.sigma_coeff, parts[1])
+        ext(_aux_basis(dom, self.u_row, dev), parts[2])
         ident = field.mul_const(FR, ntt.power_table(dom.extended_omega, ext_n,
                                                     dev), dom.G_COSET)
-        parts = [dom.coeff_to_extended(pk.fixed_coeff, True),
-                 dom.coeff_to_extended(pk.sigma_coeff, True), aux,
-                 field.to_mont(FR, torch.stack((ident, dom.zh_inv_extended)))]
-        self.static = torch.cat(parts)
-        assert self.static.shape[0] == self.layout[("aux", AUX[-1])] + 1
+        parts[3].copy_(field.to_mont(FR, torch.stack((ident,
+                                                      dom.zh_inv_extended))))
 
-    def __call__(self, lag_cols: torch.Tensor, chal: torch.Tensor):
-        """lag_cols: (C, n, 8) advice, instance, permutation Zs, lookup Z,
-        permuted inputs, permuted tables (leaf_layout order).  Returns the
-        quotient pieces (qd, n, 8) in coefficient form."""
+    def __call__(self, pk: ProvingKey, fresh: list, chal: torch.Tensor,
+                 on_staged=None):
+        """fresh: the (n, 8) advice, instance, permutation Z, lookup Z,
+        permuted input and permuted table columns (leaf_layout order).
+        Returns the quotient pieces (qd, n, 8) in coefficient form."""
         dom = self.dom
-        t_last = [time.perf_counter()]
-
-        def tick2(stage):
-            if os.environ.get("H2T_PROFILE2"):
-                _sync(lag_cols.device)
-                t = time.perf_counter()
-                print(f"    [quot] {stage}: {t - t_last[0]:.3f}s", flush=True)
-                t_last[0] = t
-
+        n, ext_n = dom.n, dom.extended_n
+        lag_cols = torch.stack(fresh)
+        C = lag_cols.shape[0]
+        tick2 = _tick2("quot", lag_cols.device, [time.perf_counter()])
         coeff = dom.lagrange_to_coeff(lag_cols)
-        tick2(f"lag2coeff x{lag_cols.shape[0]}")
-        ext = dom.coeff_to_extended(coeff, True)
+        del lag_cols
+        tick2(f"lag2coeff x{C}")
+        leaves = torch.empty((self.static.shape[0] + C, ext_n, 8),
+                             dtype=torch.int32, device=coeff.device)
+        dom.coeff_to_extended(coeff, True,
+                              out=leaves[self.static.shape[0]:])
         del coeff                              # not held through K4
-        tick2(f"coeff2ext x{lag_cols.shape[0]}")
-        leaves = torch.cat((self.static, ext))
+        leaves[:self.static.shape[0]] = self.static
+        tick2(f"coeff2ext x{C}")
         h = quotient_forest(leaves, self.tape.const_table(chal), self.tape)
         tick2("pointwise")
         if os.environ.get("H2T_SELFCHECK") in ("4", "5"):
             _oracle_quotient_window(self, leaves, field.to_ints(chal), h)
+        del leaves
         coeffs = dom.extended_to_coeff(h, True)
         tick2("h coset_intt")
-        return coeffs.reshape(-1, dom.n, 8)[:dom.quotient_degree]
+        return coeffs.reshape(-1, n, 8)[:dom.quotient_degree]
 
 
-def _oracle_quotient_window(quot: _Quotient, leaves: torch.Tensor,
+class CosetSplit:
+    """The cosets g_c H, g_c = g w_ext^c, c < s = ext_n / n, into which a
+    domain's extended coset falls, and the way back from values on them to
+    the quotient's pieces.  With b'_c = coset_intt(h_c, g_c), which is
+    sum_j a_{d + jn} (g^n)^j zeta^(cj) (zeta = w_ext^n),
+        a_{d + jn} = (g^n)^(-j) / s * sum_c zeta^(-cj) b'_c[d]:
+    a coset inverse transform a coset, then K1 products and sums."""
+
+    def __init__(self, dom):
+        n, stride = dom.n, dom.extended_n // dom.n
+        self.dom = dom
+        self.g_cosets = [dom.G_COSET * pow(dom.extended_omega, c, rc.FR)
+                         % rc.FR for c in range(stride)]
+        s_inv = rc.finv(pow(dom.G_COSET, n, rc.FR), rc.FR)
+        zeta_inv = rc.finv(pow(dom.extended_omega, n, rc.FR), rc.FR)
+        inv_stride = rc.finv(stride, rc.FR)
+        # weights[j][c]: the weight of b'_c in piece j
+        self.weights = [[pow(s_inv, j, rc.FR) * pow(zeta_inv, c * j, rc.FR)
+                         % rc.FR * inv_stride % rc.FR for c in range(stride)]
+                        for j in range(dom.quotient_degree)]
+
+    def add(self, pieces, c: int, h_c: torch.Tensor) -> torch.Tensor:
+        """Coset c's values h_c (n, 8), Montgomery form, added into the
+        pieces (qd, n, 8) so far (None before coset 0)."""
+        b_c = self.dom.coset_to_coeff(h_c, self.g_cosets[c], True)
+        if pieces is None:
+            pieces = torch.empty((len(self.weights),) + b_c.shape,
+                                 dtype=torch.int32, device=b_c.device)
+        for j, w in enumerate(self.weights):
+            term = field.mul_const(FR, b_c, w[c])
+            pieces[j] = term if c == 0 else field.add(FR, pieces[j], term)
+        return pieces
+
+
+class _QuotientCoset:
+    """Per-pk coset-separated quotient, the counterpart of the reference's
+    `_quotient_fn_coset`.  Every rotation of the forest is a multiple of
+    the stride ext_n / n, so the extended evaluation splits over the cosets
+    of `CosetSplit`: for each, the leaves are converted onto g_c H (n rows)
+    into ONE (L, n, 8) buffer, reused across cosets, K4 runs the stride-1
+    tape over them (Z_H is the constant g_c^n - 1 there), and its values go
+    into the pieces at once.  Nothing ext_n rows long is made."""
+
+    def __init__(self, pk: ProvingKey):
+        csys = pk.vk.cs
+        dom = pk.domain()
+        self.dom, self.csys = dom, csys
+        self.stride = 1
+        self.tape = compile_tape(csys, dom.n, dom.n)
+        self.layout = leaf_layout(csys)
+        self.u_row = dom.n - csys.blinding_factors() - 1
+        self.aux_coeff = _aux_basis(dom, self.u_row, pk.device)
+        self.split = CosetSplit(dom)
+
+    def __call__(self, pk: ProvingKey, fresh: list, chal: torch.Tensor,
+                 on_staged=None):
+        """As `_Quotient.__call__`.  The fresh columns are staged in
+        coefficient form first; then `fresh` is emptied and `on_staged()`
+        called, so the caller may take its own copies off the device."""
+        dom, lay = self.dom, self.layout
+        n = dom.n
+        dev = chal.device
+        C = len(fresh)
+        tick2 = _tick2("quot/coset", dev, [time.perf_counter()])
+        staged = _stage(dom.lagrange_to_coeff, fresh, torch.empty(
+            (C, n, 8), dtype=torch.int32, device=dev))
+        fresh.clear()
+        if on_staged is not None:
+            on_staged()
+        tick2(f"lag2coeff x{C}")
+
+        nf, ns = pk.fixed_coeff.shape[0], pk.sigma_coeff.shape[0]
+        aux0 = lay[("aux", AUX[0])]
+        fresh0 = lay[("aux", AUX[-1])] + 1
+        leaves = torch.empty((fresh0 + C, n, 8), dtype=torch.int32,
+                             device=dev)
+        consts = self.tape.const_table(chal)
+        pieces = None
+        for c, g_c in enumerate(self.split.g_cosets):
+            def conv(cols, out):
+                return dom.coeff_to_coset(cols, g_c, True, out=out)
+
+            conv(pk.fixed_coeff, leaves[:nf])
+            conv(pk.sigma_coeff, leaves[nf:nf + ns])
+            conv(self.aux_coeff, leaves[aux0:aux0 + 3])
+            # omega^i g_c and 1 / (g_c^n - 1), Montgomery form
+            leaves[lay[("aux", "ident")]] = field.mul_const(
+                FR, dom.omega_pows_mont, g_c)
+            leaves[lay[("aux", "zh_inv")]] = field.const_mont(
+                FR, rc.finv((pow(g_c, n, rc.FR) - 1) % rc.FR, rc.FR), dev)
+            conv(staged, leaves[fresh0:])
+            h_c = quotient_forest(leaves, consts, self.tape)
+            if c == 0 and os.environ.get("H2T_SELFCHECK") in ("4", "5"):
+                _oracle_quotient_window(self, leaves, field.to_ints(chal),
+                                        h_c)
+            pieces = self.split.add(pieces, c, h_c)
+            tick2(f"coset {c}")
+        return pieces
+
+
+def _oracle_quotient_window(quot, leaves: torch.Tensor,
                             chal: list, h: torch.Tensor, s: int = 17,
                             W: int = 8) -> None:
-    """H2T_SELFCHECK=4, 5: h over the extended rows [s, s + W) recomputed
-    with Python ints from K4's own leaves (Montgomery form), read at each
-    rotation's stride, against K4's output there: an exact oracle for the
-    tape and the kernel."""
-    csys, dom, lay = quot.csys, quot.dom, quot.layout
-    n, ext_n = dom.n, dom.extended_n
-    stride = ext_n // n
+    """H2T_SELFCHECK=4, 5: h over the rows [s, s + W) of K4's launch (the
+    extended domain, or a coset) recomputed with Python ints from K4's own
+    leaves (Montgomery form), read at each rotation's stride, against K4's
+    output there: an exact oracle for the tape and the kernel."""
+    csys, lay = quot.csys, quot.layout
+    rows, stride = leaves.shape[1], quot.stride
     u_row = quot.u_row
     chunk_len = csys.permutation_chunk_len()
     perm_cols = csys.permutation_columns
@@ -270,7 +521,7 @@ def _oracle_quotient_window(quot: _Quotient, leaves: torch.Tensor,
     theta_i, beta_i, gamma_i, y_i = chal[:4]
 
     def rows_of(col, r=0):
-        idx = torch.arange(s + r * stride, s + W + r * stride) % ext_n
+        idx = torch.arange(s + r * stride, s + W + r * stride) % rows
         return [v * r_inv % rc.FR
                 for v in field.to_ints(col[idx.to(col.device)])]
 
@@ -372,17 +623,26 @@ def _oracle_quotient_window(quot: _Quotient, leaves: torch.Tensor,
               flush=True)
 
 
-def quotient_pipeline(pk: ProvingKey) -> _Quotient:
-    q = pk.__dict__.get("_quotient")
+def quotient_pipeline(pk: ProvingKey):
+    """The quotient pipeline a proof with `pk` takes now, kept on the pk:
+    the coset-separated one where `coset_quotient_wanted`, else the
+    one-shot one.  The one-shot one is never built on the coset path, and
+    one built before is dropped with its extended columns."""
+    coset = coset_quotient_wanted(pk.vk.cs, pk.domain().extended_n,
+                                  pk.device)
+    key = "_quotient_coset" if coset else "_quotient"
+    if coset:
+        pk.__dict__.pop("_quotient", None)
+    q = pk.__dict__.get(key)
     if q is None:
-        q = _Quotient(pk)
-        pk.__dict__["_quotient"] = q
+        q = (_QuotientCoset if coset else _Quotient)(pk)
+        pk.__dict__[key] = q
     return q
 
 
 def _eval_barycentric(dom, values: dict, pairs: list) -> list:
     """Each (name, point) pair's evaluation from the Lagrange values:
-    barycentric weights for every point at once, 16 pairs a batch."""
+    barycentric weights for every point at once, then 16 pairs a batch."""
     dev = values["h"].device
     points = []
     for _, pt in pairs:
@@ -520,6 +780,7 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
         for ci, cp in enumerate(csys.challenge_phases):
             if cp == phase:
                 challenges[ci] = transcript.squeeze_challenge()
+    del phase_cols, batch
     tick("phase commits")
     theta = transcript.squeeze_challenge()
 
@@ -551,21 +812,28 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
         return {FIXED: pk.fixed_lagrange, ADVICE: advice_cols,
                 INSTANCE: inst_lag}[col.kind][col.index]
 
+    big = big_domain(n)
     perm_vals = [col_lagrange(c) for c in csys.permutation_columns]
     num_chunks = csys.num_permutation_chunks()
     blinds = [field.from_ints(FR, rng.fill(bf), dev)
               for _ in range(num_chunks + len(lookups))]
     zs, num, den = _grand_products(pk, perm_vals, lookups, beta, gamma,
-                                   blinds)
+                                   blinds, streamed=big,
+                                   keep=selfcheck == "3")
+    del perm_vals, lk_batch
     perm_zs = zs[:num_chunks]
     for li, lkd in enumerate(lookups):
         lkd["z"] = zs[num_chunks + li]
     if selfcheck == "3":
         _selfcheck_grand_products(perm_zs, zs[num_chunks:], num, den, u_row)
     del num, den
+    if big:
+        for lkd in lookups:               # read by the grand products only
+            lkd["a"] = lkd["s"] = None
     random_vals = rng.fill_words(n, dev)
     for pt in commit_many_lagrange(params, zs + [random_vals]):
         transcript.write_point(pt)
+    del zs
     tick("grand products+random")
     y = transcript.squeeze_challenge()
 
@@ -576,9 +844,32 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
     fresh = (advice_cols + inst_lag + perm_zs
              + [d["z"] for d in lookups] + [d["a_perm"] for d in lookups]
              + [d["s_perm"] for d in lookups])
-    h_pieces = quotient_pipeline(pk)(torch.stack(fresh), chal)
-    for pt in commit_many(params, h_pieces):
-        transcript.write_point(pt)
+    quot = quotient_pipeline(pk)
+
+    def move_witness(to):
+        """The witness columns to `to`: the host while the cosets run."""
+        advice_cols[:] = [c.to(to) for c in advice_cols]
+        perm_zs[:] = [c.to(to) for c in perm_zs]
+        for d in lookups:
+            for key in ("z", "a_perm", "s_perm"):
+                d[key] = d[key].to(to)
+
+    if big:                   # idle through the quotient
+        params.park_fixed_base(lagrange=True)
+        pk.park_lagrange()
+    stash = big and isinstance(quot, _QuotientCoset) and not selfcheck
+    try:
+        h_pieces = quot(pk, fresh, chal,
+                        (lambda: move_witness("cpu")) if stash else None)
+        del fresh
+        for pt in commit_many(params, h_pieces):
+            transcript.write_point(pt)
+    finally:
+        if big:
+            params.park_fixed_base(lagrange=False)
+            pk.restore_lagrange()
+    if stash:                 # `quot` moved them once it had staged them
+        move_witness(dev)
     tick("quotient+commit")
     x = transcript.squeeze_challenge()
     xn = pow(x, n, rc.FR)

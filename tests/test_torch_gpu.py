@@ -434,6 +434,70 @@ def test_quotient_kernel_sha256_tape():
                                                            tape))
 
 
+def test_quotient_kernel_stride1_tape():
+    """The RSA key's forest on the stride-1 tape (rotations one row: the
+    coset-separated quotient's launch) over one coset's 2^17 rows equals
+    its plain version."""
+    import json
+    import os
+    from halo2_zkcert_tpu_torch.plonk.keygen import vk_from_dict
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "build", "rsa_1.pk.vk")) as f:
+        vk = vk_from_dict(json.load(f))
+    n = vk.n
+    tape = quotient.compile_tape(vk.cs, n, n)
+    L = len(quotient.leaf_layout(vk.cs))
+    leaves = _rand(FR, 11, L * n, dev).reshape(L, n, 8)
+    consts = tape.const_table(_rand(FR, 12, tape.num_challenges, dev))
+    before = kernels.launches["quotient_forest"]
+    got = quotient.quotient_forest(leaves, consts, tape)
+    assert kernels.launches["quotient_forest"] == before + 1
+    assert torch.equal(got, quotient.quotient_forest_plain(leaves, consts,
+                                                           tape))
+
+
+@pytest.mark.parametrize("tables_in_files", [True, False])
+def test_forced_big_domain_toy_proof_on_the_card(monkeypatch, tmp_path,
+                                                 tables_in_files):
+    """The toy proof (k=6) on the card forced onto the big-domain path
+    (coset quotient and residency), commitments on the fixed base, equals the JAX
+    package's bytes (tests/data/toy_reference.npz) and verifies; K4 runs
+    once a coset; the key's columns are back on the card, and the window
+    tables wait in their files or on the host."""
+    import json
+    import os
+    from halo2_zkcert_tpu_torch.plonk import (create_proof, from_reference_pk,
+                                              setup, verify_proof)
+    from halo2_zkcert_tpu_torch.transcript import PoseidonTranscript
+    dev = _device()
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    z = np.load(os.path.join(root, "tests", "data", "toy_reference.npz"))
+    pk = from_reference_pk(
+        {k: z[k] for k in ("fixed_lagrange", "fixed_coeff", "sigma_lagrange",
+                           "sigma_coeff")},
+        json.loads(z["vk_json"].tobytes()), dev)
+    instances = json.loads(z["instances_json"].tobytes())
+    advice = field.from_resident(FR, torch.from_numpy(z["advice"]).to(dev))
+    for name, v in (("H2T_EXT_BUDGET_BYTES", "1"), ("H2T_U8_MIN_N", "1"),
+                    ("H2T_FB_MSM", "1"),
+                    ("PARAMS_DIR", str(tmp_path if tables_in_files
+                                       else tmp_path / "absent"))):
+        monkeypatch.setenv(name, v)
+    params = setup(pk.vk.k, device=dev)
+    kernels.reset_launches()
+    proof = create_proof(params, pk, advice, instances, PoseidonTranscript())
+    stride = pk.domain().extended_n // pk.vk.n
+    assert kernels.launches["quotient_forest"] == stride
+    assert proof == z["proof_poseidon"].tobytes()
+    assert verify_proof(params, pk.vk, instances, proof, PoseidonTranscript)
+    assert pk.fixed_lagrange.device == dev and pk.device == dev
+    parked = params.__dict__["_parked_fb_monomial"]
+    assert (parked.table_flat is None) == tables_in_files
+    table = params.fixed_base(lagrange=False).table_flat
+    assert table.device == dev and "_parked_fb_monomial" not in params.__dict__
+
+
 @pytest.mark.parametrize("fb", ["0", "1"])
 def test_keygen_on_the_card(fb, monkeypatch):
     """keygen of the SHA-256 circuit at a short message (k=9) on the card,
