@@ -1,0 +1,10 @@
+"""Mean milliseconds of the prover's "quotient+commit" stage (plonk/prover.py
+LAST_STAGE_TIMES, device-synchronised at its end) over the proofs wholly
+inside the traced stretch."""
+
+STAGE = "quotient+commit"
+
+
+def read(run):
+    xs = [p.stages[STAGE] for p in run.traced if STAGE in p.stages]
+    return 1e3 * sum(xs) / len(xs) if xs else None
