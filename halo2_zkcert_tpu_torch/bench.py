@@ -5,15 +5,16 @@ through `RsaCircuit` with the committed proving key build/rsa_1.pk.{npz,vk}
 (the JAX package's keygen output, carried across by sdk.read_pk), a Poseidon
 transcript, and the port's verifier.
 
-    python -m halo2_zkcert_tpu_torch.bench [--repeat N] [--profile]
+    python -m halo2_zkcert_tpu_torch.bench [--repeat N]
 
 prints one JSON line; it needs a CUDA device.  The line names the commitment
 path that ran (`commit_path`: the fixed-base MSM by default, the
 variable-base one under H2T_FB_MSM=0) and each kernel's launches on the last
 timed proof; the fixed-base window tables are built before the timed region
-(`tables_s`).  With --profile, a further proof runs under torch.profiler and
-the line also carries the device's busy and idle share of that proof and its
-device time by kernel name, the hand-written kernels (k_*) all listed.
+(`tables_s`).  A proof's device time by kernel, its idle share and what the
+host did in each idle gap come from the benchmark's traced run
+(`python3 zkbench/run.py --workload rsa2048_k17.solo --seed <n> --seconds 51
+--trace 1`).
 With --sweep-scan-c no proof runs: the line carries the time of one group of
 four full columns and of one bounded 16-bit column through the fixed-base
 MSM for each row length of the scan kernel, forced in place of what
@@ -63,46 +64,6 @@ def prove_rsa(params, circuit, pk, sig: int, digest: bytes, device="cuda"):
     proof = create_proof(params, pk, witness_fn, instances,
                          PoseidonTranscript())
     return proof, instances, time.perf_counter() - t0
-
-
-def _merged_us(intervals) -> float:
-    """Length of the union of (start, end) intervals."""
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    return total + (cur_e - cur_s if cur_e is not None else 0.0)
-
-
-def profile_proof(params, circuit, pk, sig, digest, top: int = 12) -> dict:
-    """One proof under torch.profiler: wall seconds, the share of that wall
-    time in which some kernel ran on the device, and device time by kernel
-    name (the `top` largest)."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        prove_rsa(params, circuit, pk, sig, digest)
-        wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((ev.time_range.start, ev.time_range.end))
-        d = ev.time_range.end - ev.time_range.start
-        by_name[ev.name] = by_name.get(ev.name, 0.0) + d
-    busy_s = _merged_us(spans) / 1e6
-    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])
-    names = ranked[:top] + [kv for kv in ranked[top:]
-                            if kv[0].startswith("k_")]
-    return {"wall_s": wall, "device_busy_s": busy_s,
-            "device_idle_share": 1.0 - busy_s / wall if wall else None,
-            "device_kernels": len(spans),
-            "kernel_s_by_name": {k[:80]: v / 1e6 for k, v in names}}
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -207,8 +168,6 @@ def cios_rate(device) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--profile", action="store_true",
-                    help="add a profiled proof: device busy/idle share")
     ap.add_argument("--repeat", type=int, default=1,
                     help="timed proofs after the warm-up; value = the median")
     ap.add_argument("--sweep-scan-c", action="store_true",
@@ -252,8 +211,6 @@ def main() -> None:
            "tables_s": tables_s, "launches": dict(kernels.launches),
            "device": torch.cuda.get_device_name(0),
            "stages_s": dict(prover.LAST_STAGE_TIMES)}
-    if args.profile:
-        out["profile"] = profile_proof(params, circuit, pk, sig, digest)
     print(json.dumps(out))
 
 

@@ -47,6 +47,7 @@ import torch
 from ..ops import field, frops
 from ..ops.field import FR
 from ..utils import refcrypto as rc
+from ..utils import trace
 from ..cert.x509 import pkcs1v15_sha256_em
 from ..plonk import ADVICE, INSTANCE, CircuitData, Column, ConstraintSystem
 from ..plonk import expression as ex
@@ -329,10 +330,13 @@ class RsaCircuit:
 
     # ---------------------------------------------------------------- witness
 
+    @trace.traced("witness")
     def witness(self, signature: int, digest: bytes, device="cuda"):
         """Witness program: phase-0 tape V (host ints) + phase-1
         accumulators A (device scan).  Returns a callable for
-        `create_proof`, plus the instances."""
+        `create_proof`, plus the instances.  The call is the span recorder's
+        span `witness`; `create_proof` records each phase's call as
+        another."""
         L, nmod = self.L, self.modulus
         n_rows = self.n
         V = [0] * n_rows

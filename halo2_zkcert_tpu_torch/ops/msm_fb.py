@@ -32,6 +32,11 @@ this port's own.
 fused_scan_madd): a CUDA tensor launches the kernel, a CPU tensor runs
 `scan_madd_plain`.  Given the sorted digits it writes only the prefixes that
 are read afterwards (`scan_madd_defined`).
+
+For the span recorder (utils/trace.py) each evaluation counts, from shapes
+alone, its columns, the pairs it schedules (padding left out) and its
+buckets (2^wbits a column), and each gather of table points is the span
+`msm_gather` with its device interval.
 """
 from __future__ import annotations
 
@@ -40,6 +45,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import trace
 from . import curve, kernels, scan
 
 # flat (window, point) pairs per sort + scan round: one full 2^17-row column
@@ -247,7 +253,10 @@ def _chunk_buckets(table_flat, digits, rows, wbits: int) -> torch.Tensor:
     pair, both (B, chunk) -> (B, 2^wbits, 3, 8) bucket sums."""
     dsort, order = torch.sort(digits, dim=1)
     rows_sorted = torch.gather(rows, 1, order)
-    local, off, C = _scan_local(table_flat[rows_sorted], dsort)
+    with trace.span("msm_gather", device=rows_sorted.device):
+        pts = table_flat[rows_sorted]
+    local, off, C = _scan_local(pts, dsort)
+    del pts                         # not held through the extraction
     return _extract_buckets_batched(local, off, C, dsort, wbits)
 
 
@@ -318,6 +327,11 @@ class FixedBaseMsm:
         """scalars (n, 8) canonical Fr words -> projective point (3, 8)."""
         return self.msm_many(scalars[None])[0]
 
+    def _count(self, columns: int, pairs: int) -> None:
+        """The recorder's counters of `columns` columns of `pairs` pairs."""
+        trace.count(columns=columns, pairs=columns * pairs,
+                    buckets=columns << self.wbits)
+
     def _rows_full(self, device) -> torch.Tensor:
         """(1, nwin * n) window-major table indices of full-width scalars."""
         return torch.arange(self.nwin * self.n, device=device)[None]
@@ -330,6 +344,7 @@ class FixedBaseMsm:
         """(m, n, 8) -> (m, 3, 8) projective sums, `group` columns a
         round."""
         assert cols.shape[1] == self.n, (cols.shape, self.n)
+        self._count(cols.shape[0], self.nwin * self.n)
         if self.nwin * self.n > self.STREAM_PAIRS:
             return self._msm_many_streamed(cols)
         rows = self._rows_full(cols.device)
@@ -386,6 +401,7 @@ class FixedBaseMsm:
             return self.msm_many(cols)
         assert cols.shape[1] == self.n, (cols.shape, self.n)
         rows, total = self._small_layout(vw, blind_lo, cols.device)
+        self._count(cols.shape[0], total)
         outs = []
         for base in range(0, cols.shape[0], GROUP_SMALL):
             grp = cols[base:base + GROUP_SMALL]

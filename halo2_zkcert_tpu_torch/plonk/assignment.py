@@ -16,6 +16,7 @@ import torch
 from ..ops import field as fops
 from ..ops.field import FR
 from ..utils import refcrypto as rc
+from ..utils import trace
 from .cs import ADVICE, FIXED, INSTANCE, ConstraintSystem
 
 
@@ -192,6 +193,7 @@ class BlindingRng:
     def fill(self, count: int) -> list:
         return [self.next_fr() for _ in range(count)]
 
+    @trace.traced("blinding")
     def fill_words(self, count: int, device) -> torch.Tensor:
         """Bulk blinding draw: (count, 8) canonical words on `device`.
 

@@ -13,8 +13,6 @@ across with `from_reference_pk` (sdk.read_pk).
 """
 from __future__ import annotations
 
-import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -23,6 +21,7 @@ import torch
 from ..ops import field
 from ..ops.field import FR
 from ..utils import refcrypto as rc
+from ..utils import trace
 from .assignment import CircuitData, permutation_mapping
 from .cs import DELTA, ConstraintSystem
 from .domain import Domain
@@ -185,16 +184,7 @@ def keygen(params: ParamsKZG, data: CircuitData) -> ProvingKey:
     assert params.k == data.k, "SRS size must match circuit k"
     device = params.g.device
     dom = Domain(data.k, data.cs.quotient_degree, str(device))
-    profile = bool(os.environ.get("H2T_PROFILE"))
-    t_last = [time.perf_counter()]
-
-    def tick(stage):
-        if profile:
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            t = time.perf_counter()
-            print(f"  [keygen] {stage}: {t - t_last[0]:.3f}s", flush=True)
-            t_last[0] = t
+    tick = trace.Ticks("keygen", "H2T_PROFILE", device)
 
     # the fixed-base tables first, before the key's columns take memory
     if _fb_wanted(params.n, device):

@@ -20,9 +20,10 @@ built lazily and cached beside the SRS file; everything else (short
 polynomials, small domains, CPU tensors) takes the variable-base Pippenger
 of ops/msm.py.  Two environment knobs, read at each call: H2T_FB_MSM
 (`auto`, `0` = always variable base, `1` = always fixed base) and
-H2T_FB_BOUNDED=0 (ignore the value-bit hints of bounded columns).  With
-H2T_PROFILE2 set, each batch of commitments prints the reference's
-`[commit] <tag> x<columns>: <s>` line.
+H2T_FB_BOUNDED=0 (ignore the value-bit hints of bounded columns).  Each
+batch of commitments is the recorder's span `commit` (utils/trace.py), which
+prints the reference's `[commit] <tag> x<columns>: <s>` line under
+H2T_PROFILE2.
 
 While a prover mesh of more than one rank is active (parallel/context.py),
 commitments take no fixed-base tables, and those whose base length divides
@@ -32,7 +33,6 @@ by the mesh size go through parallel/msm_sharded.py, as the JAX package's
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from functools import lru_cache
 
@@ -45,6 +45,7 @@ from ..ops.msm_fb import FixedBaseMsm
 from ..parallel.context import multi_rank, split_mesh
 from ..parallel.msm_sharded import msm_sharded
 from ..utils import refcrypto as rc
+from ..utils import trace
 
 MAGIC = b"H2TPUSRS"
 DEFAULT_TAU_SEED = b"halo2-zkcert-tpu-test-srs"
@@ -236,16 +237,11 @@ def commit_path(params: ParamsKZG) -> str:
             else "variable_base")
 
 
-def _commit_timer(tag: str, cols: torch.Tensor, fn) -> list:
-    """fn(), with H2T_PROFILE2 set its wall seconds printed as the
-    reference's `[commit] <tag> x<columns>` line."""
-    if not os.environ.get("H2T_PROFILE2"):
-        return fn()
-    t0 = time.perf_counter()
-    out = fn()                          # host ints: the device is done
-    print(f"    [commit] {tag} x{cols.shape[0]}: "
-          f"{time.perf_counter() - t0:.3f}s", flush=True)
-    return out
+def _commit_span(tag: str, cols: torch.Tensor):
+    """A batch of commitments as the span `commit`; it ends once the points
+    are host ints, so the device is done."""
+    return trace.span("commit", ("H2T_PROFILE2", "commit",
+                                 f"{tag} x{cols.shape[0]}"))
 
 
 def commit_many_lagrange(params: ParamsKZG, cols, value_bits=None,
@@ -259,12 +255,11 @@ def commit_many_lagrange(params: ParamsKZG, cols, value_bits=None,
     if cols is None:
         return []
     if _fb_wanted(params.n, cols.device):
-        return _commit_timer(
-            f"lag fb vb={value_bits}", cols,
-            lambda: _fb_commit(params.fixed_base(lagrange=True), cols,
-                               value_bits, blind_lo))
-    return _commit_timer("lag vb", cols,
-                         lambda: _commit(params.g_lagrange, cols))
+        with _commit_span(f"lag fb vb={value_bits}", cols):
+            return _fb_commit(params.fixed_base(lagrange=True), cols,
+                              value_bits, blind_lo)
+    with _commit_span("lag vb", cols):
+        return _commit(params.g_lagrange, cols)
 
 
 def commit_many(params: ParamsKZG, polys) -> list:
@@ -274,8 +269,7 @@ def commit_many(params: ParamsKZG, polys) -> list:
         return []
     deg = polys.shape[1]
     if deg == params.n and _fb_wanted(params.n, polys.device):
-        return _commit_timer(
-            "mono fb", polys,
-            lambda: _fb_commit(params.fixed_base(lagrange=False), polys))
-    return _commit_timer("mono vb", polys,
-                         lambda: _commit(params.g[:deg], polys))
+        with _commit_span("mono fb", polys):
+            return _fb_commit(params.fixed_base(lagrange=False), polys)
+    with _commit_span("mono vb", polys):
+        return _commit(params.g[:deg], polys)

@@ -68,17 +68,21 @@ and off by default; they print the reference's lines and change no byte:
   H2T_PROFILE    the stage ticks `[prove] <stage>: <s>` (and keygen's).
   H2T_PROFILE2   the witness passes, the quotient's sub-stages and the
                  commitments (plonk/kzg.py).
+Both print from the span recorder (utils/trace.py), which records a proof's
+spans while either is set or torch's profiler collects: `prove`, its six
+stages (the readings of `LAST_STAGE_TIMES`), the witness phases, the
+blinding draws and the quotient's sub-stages.
 """
 from __future__ import annotations
 
 import os
-import time
 
 import torch
 
 from ..ops import field, frops, ntt
 from ..ops.field import FR
 from ..utils import refcrypto as rc
+from ..utils import trace
 from . import expression as ex
 from .assignment import BlindingRng
 from .cs import ADVICE, DELTA, FIXED, INSTANCE
@@ -329,17 +333,6 @@ def _aux_basis(dom, u_row: int, device) -> torch.Tensor:
     return dom.lagrange_to_coeff(basis)
 
 
-def _tick2(tag: str, device, t_last: list):
-    """H2T_PROFILE2's `[<tag>] <stage>: <s>` lines, device-synchronized."""
-    def tick(stage):
-        if os.environ.get("H2T_PROFILE2"):
-            _sync(device)
-            t = time.perf_counter()
-            print(f"    [{tag}] {stage}: {t - t_last[0]:.3f}s", flush=True)
-            t_last[0] = t
-    return tick
-
-
 class _Quotient:
     """Per-pk one-shot quotient pipeline: the pk's extended columns (kept in
     Montgomery form, what K4 reads) and the tape are built once; each proof
@@ -382,7 +375,7 @@ class _Quotient:
         n, ext_n = dom.n, dom.extended_n
         lag_cols = torch.stack(fresh)
         C = lag_cols.shape[0]
-        tick2 = _tick2("quot", lag_cols.device, [time.perf_counter()])
+        tick2 = trace.Ticks("quot", "H2T_PROFILE2", lag_cols.device)
         coeff = dom.lagrange_to_coeff(lag_cols)
         del lag_cols
         tick2(f"lag2coeff x{C}")
@@ -466,7 +459,7 @@ class _QuotientCoset:
         n = dom.n
         dev = chal.device
         C = len(fresh)
-        tick2 = _tick2("quot/coset", dev, [time.perf_counter()])
+        tick2 = trace.Ticks("quot/coset", "H2T_PROFILE2", dev)
         staged = _stage(dom.lagrange_to_coeff, fresh, torch.empty(
             (C, n, 8), dtype=torch.int32, device=dev))
         fresh.clear()
@@ -715,21 +708,19 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
     """witness: an (num_advice, n, 8) tensor (single phase) or a callable
     `witness(phase, challenges) -> {col: (n, 8) tensor}`; instances: per
     instance column, a list of Fr ints."""
+    with trace.proving():
+        return _create_proof(params, pk, witness, instances, transcript, rng)
+
+
+def _create_proof(params, pk, witness, instances, transcript, rng):
     dev = pk.device
     LAST_STAGE_TIMES.clear()
     LAST_SELFCHECK.clear()
     selfcheck = os.environ.get("H2T_SELFCHECK")
-    profile = bool(os.environ.get("H2T_PROFILE"))
-    profile2 = bool(os.environ.get("H2T_PROFILE2"))
-    t_last = [time.perf_counter()]
+    stages = trace.Ticks("prove", "H2T_PROFILE", sync=lambda: _sync(dev))
 
     def tick(stage):
-        _sync(dev)
-        t = time.perf_counter()
-        LAST_STAGE_TIMES[stage] = t - t_last[0]
-        if profile:
-            print(f"  [prove] {stage}: {t - t_last[0]:.3f}s", flush=True)
-        t_last[0] = t
+        LAST_STAGE_TIMES[stage] = stages(stage)
 
     rng = rng or BlindingRng()
     vk = pk.vk
@@ -740,9 +731,11 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
     u_row = n - bf - 1
 
     def blind(col, count_from):
-        col = col.clone()
-        col[count_from:] = field.from_ints(FR, rng.fill(n - count_from), dev)
-        return col
+        with trace.span("blinding"):
+            col = col.clone()
+            col[count_from:] = field.from_ints(FR, rng.fill(n - count_from),
+                                               dev)
+            return col
 
     # -- 0: vk and instances into the transcript ------------------------------
     transcript.common_scalar(vk.transcript_repr())
@@ -761,11 +754,9 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
     advice_cols: list = [None] * csys.num_advice
     challenges: dict = {}
     for phase in range(csys.num_phases):
-        t_w = time.perf_counter()
-        phase_cols = witness_fn(phase, dict(challenges))
-        if profile2:
-            print(f"    [phase{phase}] witness_fn: "
-                  f"{time.perf_counter() - t_w:.3f}s", flush=True)
+        with trace.span("witness", ("H2T_PROFILE2", f"phase{phase}",
+                                    "witness_fn")):
+            phase_cols = witness_fn(phase, dict(challenges))
         expected = [i for i in range(csys.num_advice)
                     if csys.advice_phases[i] == phase]
         assert sorted(phase_cols.keys()) == expected, \
@@ -815,8 +806,9 @@ def create_proof(params: ParamsKZG, pk: ProvingKey, witness, instances: list,
     big = big_domain(n)
     perm_vals = [col_lagrange(c) for c in csys.permutation_columns]
     num_chunks = csys.num_permutation_chunks()
-    blinds = [field.from_ints(FR, rng.fill(bf), dev)
-              for _ in range(num_chunks + len(lookups))]
+    with trace.span("blinding"):
+        blinds = [field.from_ints(FR, rng.fill(bf), dev)
+                  for _ in range(num_chunks + len(lookups))]
     zs, num, den = _grand_products(pk, perm_vals, lookups, beta, gamma,
                                    blinds, streamed=big,
                                    keep=selfcheck == "3")

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 from .. import native
 from ..utils import refcrypto as rc
+from ..utils import trace
 from . import poseidon as _poseidon
 from .poseidon import PoseidonSponge, permute, poseidon_constants
 
@@ -54,7 +55,8 @@ class PoseidonTranscript:
     """Prover/verifier transcript over a Poseidon sponge (BN254 Fr).
 
     In write mode, `buf` accumulates the proof bytes; in read mode, bytes are
-    consumed from `data`.
+    consumed from `data`.  The prover's calls add their host seconds to the
+    span recorder's proof counter `transcript_s` (utils/trace.py).
     """
 
     def __init__(self, data: bytes | None = None):
@@ -64,6 +66,7 @@ class PoseidonTranscript:
         self.pos = 0
 
     # -- common (absorb-only) -------------------------------------------------
+    @trace.timed("transcript_s")
     def common_scalar(self, s: int) -> None:
         self.sponge.update([s % rc.FR])
 
@@ -73,19 +76,23 @@ class PoseidonTranscript:
             raise ValueError("cannot absorb the identity point")
         self.sponge.update(fe_to_limbs(x) + fe_to_limbs(y))
 
+    @trace.timed("transcript_s")
     def squeeze_challenge(self) -> int:
         return self.sponge.squeeze()
 
     # -- prover side ----------------------------------------------------------
+    @trace.timed("transcript_s")
     def write_scalar(self, s: int) -> None:
         s %= rc.FR
         self.common_scalar(s)
         self.buf += rc.fe_to_bytes_le(s)
 
+    @trace.timed("transcript_s")
     def write_point(self, pt) -> None:
         self.common_point(pt)
         self.buf += rc.g1_compress(pt)
 
+    @trace.timed("transcript_s")
     def finalize(self) -> bytes:
         return bytes(self.buf)
 
