@@ -9,6 +9,7 @@ in the reference CLI flow cli.rs:225-248).
 
 Counterpart of halo2_zkcert_tpu/circuits/rsa.py: the same constraint
 system (its digest equals the JAX package's) and the same witness; the
+phase-0 tape is built from exact int64 limb convolutions on the host, the
 phase-1 accumulator column is one device scan (ops/frops.affine_scan).
 
 NOT a port of halo2-rsa: halo2-rsa materializes every limb product through vertical
@@ -58,9 +59,40 @@ OFF = 1 << OFF_POW
 NUM_SQUARINGS = 16         # e = 2^16 + 1
 
 
-def _limbs_of(x: int, L: int, base_bits: int = B) -> list:
-    mask = (1 << base_bits) - 1
-    return [(x >> (base_bits * i)) & mask for i in range(L)]
+def _limbs(x: int, count: int) -> np.ndarray:
+    """x's `count` limbs of B = 16 bits, least significant first, as int64
+    (`to_bytes` raises where x >= 2^(16 count))."""
+    return np.frombuffer(x.to_bytes(2 * count, "little"), "<u2").astype(np.int64)
+
+
+def _mulmod_rows(x: int, y: int, q: int, z: int, n_limbs: np.ndarray):
+    """The tape rows of one modular product x y = q n + z, each MSB-first as
+    its region holds it: q's L + 1 limbs, and the low and high halves of the
+    offset carries c' = c + 2^26, where C(t) = d(t) / (t - 2^B) and
+    d(t) = X(t)Y(t) - Q(t)N(t) - Z(t) over the limbs."""
+    L = len(n_limbs)
+    ql = _limbs(q, L + 1)
+    # int64 is exact: limbs are below 2^16, so a product is below 2^32; a
+    # coefficient of either convolution sums at most L of them, so
+    # |d_k| < L 2^33, below 2^41 at RSA-4096 (L = 256) and 2^63 for L < 2^30.
+    d = np.zeros(2 * L, np.int64)
+    d[:2 * L - 1] = np.convolve(_limbs(x, L), _limbs(y, L))
+    d -= np.convolve(ql, n_limbs)
+    d[:L] -= _limbs(z, L)
+    # synthetic division by (t - 2^B) from the top, c_{k-1} = d_k + 2^B c_k,
+    # over Python ints: a product that breaks the identity gives carries
+    # past any fixed width, and they must fail the checks, not wrap
+    d = d.tolist()
+    c = [0] * (2 * L)
+    acc = 0
+    for kk in range(2 * L - 1, 0, -1):
+        acc = d[kk] + (acc << B)
+        c[kk - 1] = acc
+    assert d[0] + (1 << B) * c[0] == 0, "mulmod identity failed"
+    assert c[2 * L - 1] == 0
+    assert -OFF <= min(c) and max(c) < OFF, "carry overflow"
+    cp = np.asarray(c[::-1], np.int64) + OFF        # 0 <= c' < 2^(B + 11)
+    return ql[::-1], cp & ((1 << B) - 1), cp >> B
 
 
 @dataclass
@@ -96,6 +128,7 @@ class RsaCircuit:
         self.L = self.nbits // B
         self.k = k
         self.n = 1 << k
+        self._n_limbs = _limbs(modulus, self.L)
         self._build()
 
     # ------------------------------------------------------------------ build
@@ -183,7 +216,7 @@ class RsaCircuit:
         for r in range(usable):
             fixed[F.F_QH][r] = 1
 
-        mod_limbs = _limbs_of(self.modulus, L)
+        mod_limbs = self._n_limbs.tolist()
         for reg in self.regions.values():
             if reg.kind in ("v", "n", "one"):
                 for i in range(reg.length):
@@ -318,7 +351,7 @@ class RsaCircuit:
         L = self.L
         k_bytes = self.nbits // 8
         em_const = pkcs1v15_sha256_em(b"\x00" * 32, k_bytes)  # zero-hash EM
-        const_limbs = _limbs_of(em_const, L)
+        const_limbs = _limbs(em_const, L).tolist()
         out = []
         for i in range(L - 1, -1, -1):
             if i >= 16:
@@ -332,22 +365,21 @@ class RsaCircuit:
 
     @trace.traced("witness")
     def witness(self, signature: int, digest: bytes, device="cuda"):
-        """Witness program: phase-0 tape V (host ints) + phase-1
-        accumulators A (device scan).  Returns a callable for
+        """Witness program: phase-0 tape V (int64 limb arrays on the host) +
+        phase-1 accumulators A (device scan).  Returns a callable for
         `create_proof`, plus the instances.  The call is the span recorder's
         span `witness`; `create_proof` records each phase's call as
         another."""
         L, nmod = self.L, self.modulus
         n_rows = self.n
-        V = [0] * n_rows
+        V = np.zeros(n_rows, np.int64)
 
-        def put(reg_name: str, vals_msb_first: list):
+        def put(reg_name: str, vals_msb_first: np.ndarray):
             reg = self.regions[reg_name]
             assert len(vals_msb_first) == reg.length
-            for i, val in enumerate(vals_msb_first):
-                V[reg.start + i] = val
+            V[reg.start:reg.start + reg.length] = vals_msb_first
 
-        put("sig", list(reversed(_limbs_of(signature, L))))
+        put("sig", _limbs(signature, L)[::-1])
 
         em_int = pkcs1v15_sha256_em(digest, self.nbits // 8)
         # chain m_{i+1} = m_i^2 mod n; last: em = m_16 * s mod n
@@ -363,58 +395,31 @@ class RsaCircuit:
         assert m == pow(signature, (1 << 16) + 1, nmod)
 
         for g, (x, y, z, q) in enumerate(muls):
-            xl = _limbs_of(x, L)
-            yl = _limbs_of(y, L)
-            zl = _limbs_of(z, L)
-            ql = _limbs_of(q, L + 1)
-            nl = _limbs_of(nmod, L)
-            # d_k = conv(x,y)_k - conv(q,n)_k - z_k, k = 0..2L-1
-            d = [0] * (2 * L)
-            for i in range(L):
-                for j in range(L):
-                    d[i + j] += xl[i] * yl[j]
-            for i in range(L + 1):
-                for j in range(L):
-                    d[i + j] -= ql[i] * nl[j]
-            for i in range(L):
-                d[i] -= zl[i]
-            # synthetic division by (t - 2^B) from the top: c_{k-1} = d_k + 2^B c_k
-            c = [0] * (2 * L)
-            acc = 0
-            for kk in range(2 * L - 1, 0, -1):
-                acc = d[kk] + (1 << B) * acc
-                c[kk - 1] = acc
-            assert d[0] + (1 << B) * c[0] == 0, "mulmod identity failed"
-            assert c[2 * L - 1] == 0
-            cp = [ci + OFF for ci in c]
-            assert all(0 <= ci < (1 << (B + 11)) for ci in cp), "carry overflow"
-            put(f"q{g}", list(reversed(ql)))
-            put(f"clo{g}", list(reversed([ci & ((1 << B) - 1) for ci in cp])))
-            put(f"chi{g}", list(reversed([ci >> B for ci in cp])))
+            q_rows, clo, chi = _mulmod_rows(x, y, q, z, self._n_limbs)
+            put(f"q{g}", q_rows)
+            put(f"clo{g}", clo)
+            put(f"chi{g}", chi)
             if g < NUM_SQUARINGS:
-                put(f"z{g}", list(reversed(_limbs_of(z, L))))
+                put(f"z{g}", _limbs(z, L)[::-1])
         assert muls[-1][2] == em_int % nmod
         assert muls[-1][2] == em_int, "final EM not canonical (z == em required)"
 
         # EM region values
-        em = self.regions["em"]
-        em_limbs = _limbs_of(em_int, L)
         for byte_idx, row in self.em_rows["bytes"].items():
             V[row] = digest[byte_idx]
-        for i, row in enumerate(self.em_rows["limbs"]):
-            V[row] = em_limbs[L - 1 - i]
+        V[self.em_rows["limbs"]] = _limbs(em_int, L)[::-1]
 
         instances = [[digest[i] for i in range(32)]]
 
         def witness_fn(phase: int, challenges: dict):
             if phase == 0:
                 col = torch.zeros((n_rows, 8), dtype=torch.int32)
-                col[:, 0] = torch.from_numpy(np.asarray(V, dtype=np.int64))
+                col[:, 0] = torch.from_numpy(V)
                 return {self.COL_V: col.to(device)}
             # phase 1: the A column is ONE device scan program (see
             # _build_phase1_program) instead of a host loop over 2^k rows.
             tau = challenges[0] % rc.FR
-            b_ints = self._b_const + self._b_vmask * np.asarray(V, np.int64)
+            b_ints = self._b_const + self._b_vmask * V
             b = torch.zeros((n_rows, 8), dtype=torch.int32)
             b[:, 0] = torch.from_numpy(b_ints)        # b < 2^17 + 2^8
             msel = torch.from_numpy(self._msel).to(device)[:, None]
