@@ -1,7 +1,18 @@
 """One driver a circuit kind, found by a configuration's `circuit` name:
 drivers/<circuit>.py defines `Driver(config, inputs, device)` with
 `setup(params_dir)`, `prove(job, blinding, fault)`, `verifying_key()` and
-`close()`.  A driver reaches the program only through its public calls."""
+`close()`, and optionally `artifacts() -> dict`.  A driver reaches the
+program only through its public calls.
+
+`artifacts()` gives what the jobs' statements rest on that the reference
+cannot make in a run, such as inner proofs made in set-up and their
+instances, as plain data only: bytes, ints and strings in lists and dicts,
+no tensor and none of the program's types.  The harness reads it once the
+window has closed, after `verifying_key()` and before `close()`, and hands it
+to the reference (reference/<circuit>.py), which treats every artifact as a
+claim: it verifies each proof among them against a key it works out itself
+before it uses it, and counts as rejected every proof whose statement rests
+on an artifact that fails.  A driver without the method hands over {}."""
 from __future__ import annotations
 
 

@@ -3,9 +3,10 @@ closed-loop window, the reference's judgement, and the result line.
 
 Everything cell-specific is found by name under the benchmark's folder:
 workloads/<cell>.json, configs/<config>.json, drivers/<circuit>.py,
-traffic/<circuit>.py, metrics/<metric>.py and counts/<config>.json; the
-metrics a cell reports are the entries of BENCHMARK.json that name it (or
-name no cells)."""
+traffic/<circuit>.py, reference/<circuit>.py, metrics/<metric>.py and
+counts/<config>.json; the metrics a cell reports are the entries of
+BENCHMARK.json that name it (or name no cells).  A new circuit kind is new
+files only."""
 from __future__ import annotations
 
 import gc
@@ -59,6 +60,18 @@ def reader(name: str, root: str = ROOT):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def plain(value) -> bool:
+    """Whether `value` is plain data: bytes, ints and strings in lists,
+    tuples and dicts keyed by strings (what a driver's artifacts may be)."""
+    if isinstance(value, (bytes, int, str)):
+        return True
+    if isinstance(value, (list, tuple)):
+        return all(map(plain, value))
+    if isinstance(value, dict):
+        return all(isinstance(k, str) and plain(v) for k, v in value.items())
+    return False
 
 
 def forbidden_modules() -> list:
@@ -156,6 +169,9 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     peak = torch.cuda.max_memory_allocated(device)
     launches = {k: v - launches0.get(k, 0) for k, v in kernels.launches.items()}
     vk = driver.verifying_key()
+    artifacts = driver.artifacts() if hasattr(driver, "artifacts") else {}
+    if not isinstance(artifacts, dict) or not plain(artifacts):
+        raise TypeError("a driver's artifacts are a dict of plain data")
     tr = tracer.read() if tracer is not None else None
     if tracer is not None:
         if tr is None:
@@ -180,7 +196,7 @@ def run(workload: str, seed: int, seconds: float, trace: bool,
     from . import judge as judge_mod
     from .reference import Reference
     t = time.perf_counter()
-    ref = Reference(config, inputs)
+    ref = Reference(config, inputs, artifacts)
     log(f"reference key worked out in {time.perf_counter() - t:.3f} s")
     verdict = judge_mod.judge(ref, proofs, vk, cell["sample"], seed)
     log(f"reference checked {verdict['checked']} proofs in "

@@ -3,7 +3,9 @@ window has closed and the program's state is freed.
 
 Numbers compared, each with its limit (exact comparisons, limit 0):
   rejected        sampled proofs the reference's verifier rejects for their
-                  own job's statement under the key it works out itself;
+                  own job's statement under the key it works out itself,
+                  those whose statement rests on an artifact it refused
+                  among them;
   missing         proofs started in the window that never came, or raised;
   reused_blinding proofs whose vanishing argument's random commitment equals
                   another proof's: each proof has to draw fresh blinding;

@@ -1,44 +1,37 @@
 """The plain reference that decides whether a run's proofs are correct.
 
-From the inputs the benchmark made (the issuer's modulus and the leaves, or
-the message) and the SRS's public secret, it works out the circuit's layout,
-its verifying key and each job's statement, and verifies proofs in Python
-ints.  It imports nothing of the program and takes nothing it made: the
-proofs are what it judges.
+One module a circuit kind, found by a configuration's `circuit` name:
+reference/<circuit>.py defines `reference(config, inputs, artifacts, tau)`,
+which returns an object with
+  verify(job, proof) -> bool      whether `proof` proves job `job`'s
+                                  statement under the verifying key the
+                                  reference works out itself;
+  random_commitment(proof) -> bytes
+                                  the bytes of the proof's vanishing
+                                  argument's random commitment;
+  key_differences(fixed, permutation) -> int
+                                  how many of the program's verifying-key
+                                  commitments differ from the reference's.
+`inputs` are those the benchmark made from the seed; `tau` is the SRS's
+secret.  `artifacts` is what the driver handed over after the window
+(`Driver.artifacts()`, {} where it has none): plain data that a statement
+rests on and that the reference cannot make in a run, such as inner proofs
+and their instances.  Each artifact is a claim: the reference verifies every
+proof among them against a key it works out itself before it uses it, and a
+job whose statement rests on an artifact that fails is rejected.
+
+The reference imports nothing of the program and takes nothing it made but
+the proofs it judges.  keys.PlonkReference does the work of a circuit proved
+by the PLONK verifier in plonk.py.
 """
 from __future__ import annotations
 
-from . import bn254, keys, plonk, rsa, sha256_gate
+import importlib
+
+from . import bn254
 
 
-class Reference:
-    def __init__(self, config: dict, inputs: dict):
-        k = config["k"]
-        self.tau = bn254.default_tau()
-        if config["circuit"] == "rsa":
-            self.cs, fixed, copies, ninst = rsa.layout(inputs["modulus"], k)
-            self._statement = lambda job: rsa.statement(
-                inputs["leaves"][job][0])
-        elif config["circuit"] == "sha256_gate":
-            self.cs, fixed, copies, ninst = sha256_gate.layout(
-                inputs["message"], k)
-            stmt = sha256_gate.statement(inputs["message"])
-            self._statement = lambda job: stmt
-        else:
-            raise ValueError(f"no reference for {config['circuit']!r}")
-        self.vk = keys.verifying_key(k, self.cs, fixed, copies, ninst,
-                                     keys.Basis(k, self.tau))
-
-    def verify(self, job: int, proof: bytes) -> bool:
-        return plonk.verify(self.vk, self._statement(job), proof, self.tau)
-
-    def random_commitment(self, proof: bytes) -> bytes:
-        return plonk.random_commitment(self.cs, proof)
-
-    def key_differences(self, fixed: list, permutation: list) -> int:
-        """How many of a verifying key's commitments differ from these."""
-        mine = self.vk.fixed_commitments + self.vk.permutation_commitments
-        theirs = [tuple(p) for p in fixed] + [tuple(p) for p in permutation]
-        if len(mine) != len(theirs):
-            return max(len(mine), len(theirs))
-        return sum(a != b for a, b in zip(mine, theirs))
+def Reference(config: dict, inputs: dict, artifacts: dict):
+    """The reference of the configuration's circuit kind."""
+    mod = importlib.import_module(f"{__name__}.{config['circuit']}")
+    return mod.reference(config, inputs, artifacts, bn254.default_tau())

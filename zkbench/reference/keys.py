@@ -15,6 +15,7 @@ from operator import mul
 import numpy as np
 
 from . import bn254 as B
+from . import plonk
 from .bn254 import FR
 from .plonk import ADVICE, FIXED, INSTANCE, VerifyingKey
 
@@ -133,3 +134,30 @@ def verifying_key(k: int, cs, fixed: dict, copies: np.ndarray,
     return VerifyingKey(k=k, cs=cs, fixed_commitments=fixed_c,
                         permutation_commitments=perm_c,
                         num_instance=list(num_instance))
+
+
+class PlonkReference:
+    """The reference of a circuit proved by the PLONK verifier above: its
+    verifying key worked out from the layout (`cs`, `fixed`, `copies`,
+    `num_instance`) with the SRS's secret, and `statement(job)`, the
+    instance columns a job's proof has to prove."""
+
+    def __init__(self, k: int, cs, fixed: dict, copies: np.ndarray,
+                 num_instance: list, statement, tau: int):
+        self.cs, self.tau, self.statement = cs, tau, statement
+        self.vk = verifying_key(k, cs, fixed, copies, num_instance,
+                                Basis(k, tau))
+
+    def verify(self, job: int, proof: bytes) -> bool:
+        return plonk.verify(self.vk, self.statement(job), proof, self.tau)
+
+    def random_commitment(self, proof: bytes) -> bytes:
+        return plonk.random_commitment(self.cs, proof)
+
+    def key_differences(self, fixed: list, permutation: list) -> int:
+        """How many of a verifying key's commitments differ from these."""
+        mine = self.vk.fixed_commitments + self.vk.permutation_commitments
+        theirs = [tuple(p) for p in fixed] + [tuple(p) for p in permutation]
+        if len(mine) != len(theirs):
+            return max(len(mine), len(theirs))
+        return sum(a != b for a, b in zip(mine, theirs))

@@ -12,6 +12,7 @@ import hashlib
 
 import numpy as np
 
+from .keys import PlonkReference
 from .plonk import ADVICE, INSTANCE, Advice, Column, ConstraintSystem
 
 LIMB = 16
@@ -29,6 +30,16 @@ def pkcs1_em(digest: bytes, k_bytes: int) -> int:
 def statement(tbs: bytes) -> list:
     """The instance column of a proof that a signature over `tbs` verifies."""
     return [list(hashlib.sha256(tbs).digest())]
+
+
+def reference(config: dict, inputs: dict, artifacts: dict,
+              tau: int) -> PlonkReference:
+    """The issuer's circuit; a job's statement is its own leaf's digest.
+    It rests on no artifact."""
+    cs, fixed, copies, ninst = layout(inputs["modulus"], config["k"])
+    leaves = inputs["leaves"]
+    return PlonkReference(config["k"], cs, fixed, copies, ninst,
+                          lambda job: statement(leaves[job][0]), tau)
 
 
 def _limbs(x: int, count: int) -> list:

@@ -17,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 
 from .bn254 import FR
+from .keys import PlonkReference
 from .plonk import ADVICE, FIXED, INSTANCE, Advice, Column, ConstraintSystem
 
 M32 = (1 << 32) - 1
@@ -44,6 +45,17 @@ def pad(msg: bytes) -> bytes:
 
 def statement(msg: bytes) -> list:
     return [list(hashlib.sha256(msg).digest())]
+
+
+def reference(config: dict, inputs: dict, artifacts: dict,
+              tau: int) -> PlonkReference:
+    """The circuit that pins the message; every job proves its digest.  It
+    rests on no artifact."""
+    msg = inputs["message"]
+    cs, fixed, copies, ninst = layout(msg, config["k"])
+    stmt = statement(msg)
+    return PlonkReference(config["k"], cs, fixed, copies, ninst,
+                          lambda job: stmt, tau)
 
 
 class Cell(NamedTuple):

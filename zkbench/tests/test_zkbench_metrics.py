@@ -80,6 +80,20 @@ def test_idle_share_and_the_msm_time_a_proof():
     assert reader("ntt_roofline")(run) == pytest.approx(100 * bound / 0.05)
 
 
+@pytest.mark.parametrize("launches", [1, 4])
+def test_quotient_roofline_reads_a_proof_at_a_time(launches):
+    # three traced proofs, each running K4 in one launch over the extended
+    # domain or in four, one a coset: the same work over the same time
+    name = "k_quotient_forest<48>(x)"
+    tr = Trace(100.0, 103.0, 1.0, {name: 0.06}, {name: 3 * launches}, [])
+    run = _run([_proof(100 + i, 101 + i) for i in range(3)], trace=tr)
+    c = run.counts
+    bound = (c["quotient_products_per_row"] * c["extended_rows"]
+             * c["peaks"]["ops_per_product"] / c["peaks"]["ops_per_s"])
+    assert reader("quotient_forest_roofline")(run) == pytest.approx(
+        100 * bound / 0.02)
+
+
 def test_readers_stay_silent_without_a_trace():
     run = _run([_proof(100, 101)])
     for name in ("device_idle_share", "device_ms.msm", "ntt_roofline",

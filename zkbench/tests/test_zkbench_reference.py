@@ -12,7 +12,7 @@ import pytest
 from zkbench import harness
 from zkbench.loop import Proof
 from zkbench.judge import judge
-from zkbench.reference import Reference, bn254, keys, plonk, rsa, sha256_gate
+from zkbench.reference import bn254, keys, plonk, rsa, sha256_gate
 
 ROOT = harness.ROOT
 
@@ -87,7 +87,7 @@ def test_judge_counts_reused_blinding_and_missing(basis):
     class Fake:
         cs = rsa.layout(_modulus("example_cert_2.pem"), 17)[0]
         verify = staticmethod(lambda job, p: p == proof)
-        random_commitment = Reference.random_commitment
+        random_commitment = keys.PlonkReference.random_commitment
         key_differences = staticmethod(lambda f, p: 0)
 
     recs = [Proof(i, float(i), i + 0.5, proof=proof) for i in range(3)]
