@@ -263,11 +263,12 @@ class GateBuilder:
     def pack(self, cs: ConstraintSystem, cols: dict, n: int) -> dict:
         """Place the virtual trace into the registered columns.
 
-        Returns {col, row: each trace cell's placement (numpy); advice:
-        (na + nl, n, 8) canonical words of the registered columns, a CPU
-        tensor; fixed: (columns, rows, values) to write; copies: a
-        `CopyArray` in the JAX package's order; instances}.  Shared-CS
-        callers merge these into their own arrays.
+        Returns {col, row: each trace cell's placement (numpy); words:
+        (cells, 8) canonical words of every cell; advice: (na + nl, n, 8)
+        canonical words of the registered columns, a CPU tensor; lookup:
+        (cells, rows) of the lookup-advice copies; fixed: (columns, rows,
+        values) to write; copies: a `CopyArray` in the JAX package's order;
+        instances}.  Shared-CS callers merge these into their own arrays.
         """
         adv, lk_adv, inst = cols["adv"], cols["lk_adv"], cols["inst"]
         na, nl = len(adv), len(lk_adv)
@@ -342,7 +343,53 @@ class GateBuilder:
             instances = [[self.values[i] for i in self.instance_cells]]
         copies = CopyArray(np.concatenate(
             [np.stack(p, axis=1) for p in pairs], axis=0))
-        return {"col": col, "row": row, "advice": advice,
-                "fixed": (f_cols, f_rows, f_vals), "copies": copies,
-                "instances": instances}
+        return {"col": col, "row": row, "words": words, "advice": advice,
+                "lookup": (rc_idx, lk_cur), "fixed": (f_cols, f_rows, f_vals),
+                "copies": copies, "instances": instances}
+
+    # ---- replay ----------------------------------------------------------------
+
+    def dataflow(self, roots) -> list:
+        """The gates whose values follow from the cells `roots`, by level:
+        a list of int64 arrays of gate offsets, and beside each the (3, m)
+        cells its inputs copy.  A gate's inputs are copies of earlier cells
+        and its output is acc_in + a * b, so a level reads only the roots,
+        cells no listed gate writes and earlier levels' outputs."""
+        count = len(self.values)
+        gates = np.frombuffer(self.gate_rows, dtype=np.int64)
+        ca = np.frombuffer(self.copy_a, dtype=np.int64)
+        cb = np.frombuffer(self.copy_b, dtype=np.int64)
+        is_input = np.zeros(count, dtype=bool)
+        for j in range(3):
+            is_input[gates + j] = True
+        src = np.full(count, -1, dtype=np.int64)
+        mine = is_input[cb]
+        src[cb[mine]] = ca[mine]
+        assert (src[is_input] >= 0).all(), "a gate input copies no cell"
+        level = [-1] * count
+        for r in np.asarray(roots, dtype=np.int64).tolist():
+            level[r] = 0
+        s = src.tolist()
+        gate_level = []
+        for g in gates.tolist():
+            lv = max(level[s[g]], level[s[g + 1]], level[s[g + 2]])
+            if lv >= 0:
+                level[g + 3] = lv + 1
+            gate_level.append(lv + 1)
+        gate_level = np.asarray(gate_level, dtype=np.int64)
+        out = []
+        for lv in range(1, int(gate_level.max(initial=0)) + 1):
+            g = gates[gate_level == lv]
+            out.append((g, np.stack([src[g], src[g + 1], src[g + 2]])))
+        return out
+
+
+def replay_gates(words: torch.Tensor, levels: list) -> None:
+    """Recompute, in place, the (cells, 8) canonical `words` of the gates of
+    `GateBuilder.dataflow`, given as tensors on `words`' device: each
+    level's inputs gathered from the cells they copy, then its outputs."""
+    for g, src in levels:
+        ins = words[src.reshape(-1)].view(3, -1, 8)
+        words[torch.stack((g, g + 1, g + 2)).reshape(-1)] = ins.reshape(-1, 8)
+        words[g + 3] = field.add(FR, ins[0], field.mul(FR, ins[1], ins[2]))
 

@@ -380,6 +380,44 @@ class BigintTape:
         self._cursors = cursors
         self._lane, self._length, self._start = lane, length, start
 
+    def _rows(self) -> tuple:
+        """Every row of every region, in region order: (region, position in
+        it, row, lane, kind).  'w'/'c' rows are MSB-first, so the last row
+        of such a region carries its evaluation.  Call after `layout`."""
+        length = self._length
+        row_reg = np.repeat(np.arange(len(self.regions)), length)
+        first = np.cumsum(length) - length
+        pos = np.arange(row_reg.size) - first[row_reg]
+        kind = np.frombuffer(self._kind, dtype=np.int64)
+        return (row_reg, pos, self._start[row_reg] + pos,
+                self._lane[row_reg], kind[row_reg])
+
+    def replay_plan(self) -> dict:
+        """What the phase-1 lane columns are made of at any tau, as flat
+        arrays (call after `layout`): `vals`, the 'w'/'c' rows' limbs in
+        region order; `steps`, for each position i >= 1 the indices into
+        `vals` of the rows at that position (each row's Horner accumulator
+        is the one above it times tau plus its limb); `last` and
+        `eval_cells`, each 'w'/'c' region's last row and the builder cell
+        that mirrors its evaluation; `lin_at`, `rel_at` the (lane, row) of
+        the 'w'/'c' rows and the relation rows; `rel_cells`, the builder
+        cell each relation row copies."""
+        row_reg, pos, rows, row_lane, row_kind = self._rows()
+        lin = row_kind < 2
+        lpos = pos[lin]
+        lin_reg = row_reg[lin]
+        last = np.nonzero(lpos == self._length[lin_reg] - 1)[0]
+        cells = np.frombuffer(self._copy_cells, dtype=np.int64)
+        reg_lin = np.frombuffer(self._kind, dtype=np.int64) < 2
+        take_reg = np.repeat(reg_lin, np.where(reg_lin, 1, self.REL_SLOTS))
+        return {"vals": np.frombuffer(self._lin_vals, dtype=np.int64),
+                "steps": [np.nonzero(lpos == i)[0]
+                          for i in range(1, int(lpos.max(initial=0)) + 1)],
+                "last": last, "eval_cells": cells[take_reg],
+                "lin_at": (row_lane[lin], rows[lin]),
+                "rel_at": (row_lane[~lin], rows[~lin]),
+                "rel_cells": cells[~take_reg]}
+
     def materialize(self, cs: ConstraintSystem, cols: dict, n: int,
                     builder_cells, fixed_out: np.ndarray | None = None):
         """Fill `fixed_out` (num_fixed, n array; None: a witness pass,
@@ -394,23 +432,15 @@ class BigintTape:
         a relation's 8 slot rows; then the limb mirrors).
         """
         usable = cs.usable_rows(n)
-        lanes, R = self.lanes, len(self.regions)
-        lane, length, start = self._lane, self._length, self._start
-        kind = np.frombuffer(self._kind, dtype=np.int64)
+        lanes = self.lanes
+        lane, length = self._lane, self._length
+        row_reg, pos, rows, row_lane, row_kind = self._rows()
         flags = np.array([[c.index for c in f] for f in cols["flags"]],
                          dtype=np.int64).reshape(lanes, 6)
         q_h, f_tau, f_v, f_cval, q_rel = (flags[:, j] for j in (0, 2, 3, 4, 5))
         a_col = np.array([c.index for c in cols["a_cols"]], dtype=np.int64)
         v_col = np.array([c.index for c in cols["v_cols"]], dtype=np.int64)
 
-        # every row of every region, in region order; rows MSB-first so
-        # the LAST row of a 'w'/'c' region carries the full eval
-        row_reg = np.repeat(np.arange(R), length)
-        first = np.cumsum(length) - length
-        pos = np.arange(row_reg.size) - first[row_reg]
-        rows = start[row_reg] + pos
-        row_lane = lane[row_reg]
-        row_kind = kind[row_reg]
         lin = row_kind < 2
         rel = ~lin
         lin_vals = np.frombuffer(self._lin_vals, dtype=np.int64)
@@ -457,7 +487,7 @@ class BigintTape:
             lc = np.array(self._limb_copies, dtype=np.int64)
             reg = lc[:, 0]
             mirror = np.stack([np.full(reg.size, code), v_col[lane[reg]],
-                               start[reg] + length[reg] - 1 - lc[:, 1]],
+                               self._start[reg] + length[reg] - 1 - lc[:, 1]],
                               axis=-1)
             pairs.append(np.stack([mirror, builder_cells(lc[:, 2])], axis=1))
         return v_vals, a_vals, CopyArray(np.concatenate(pairs))

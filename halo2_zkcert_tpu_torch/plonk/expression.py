@@ -160,7 +160,13 @@ def evaluate(expr: Expr, *, constant: Callable, fixed: Callable,
         cache[e] = v
         return v
 
-    return go(expr)
+    # `go` refers to itself: left alone, it and the memo (device tensors in
+    # the prover) would live until the cyclic collector runs, so the memory
+    # a proof holds would depend on when that happens
+    try:
+        return go(expr)
+    finally:
+        del go
 
 
 def collect_queries(exprs) -> tuple:

@@ -17,6 +17,13 @@ costs one check of that.  Spans are kept in a bounded buffer and read with
 ends under its knob, H2T_PROFILE's lines indented two spaces and
 H2T_PROFILE2's four: the prover's and keygen's stage ticks, the witness
 phases, the commitments and the quotient's sub-stages.
+
+A composed circuit's witness (circuits/composed.py) records `replay`, one
+phase-1 replay from the build pass's record, with the counters
+`replay_rows` (tape rows re-evaluated) and `replay_cells` (builder cells
+re-evaluated), and `witness_h2d`, the hand-over of a phase's columns to the
+proving device, with a device interval; both sit inside the prover's
+`witness` span.
 """
 from __future__ import annotations
 

@@ -145,19 +145,22 @@ def test_witness_equal(both):
 
 
 def test_witness_pass_is_kept_for_its_tau(both):
-    """A second phase-1 call at the same tau reuses the pass; another tau
-    records a new one, structure and phase 0 held to the build pass."""
+    """A second phase-1 call at the same tau reuses the replayed columns;
+    another tau is replayed from the build pass's record, the program not
+    run again, and equals a full pass at that tau (structure and phase 0
+    held to the build pass)."""
     _, (_, pc) = both
     fn, _ = pc.witness("cpu")
     tau = mock_challenges(pc.cs)[0]
     first = fn(1, {0: tau})
     passes = len(pc.pass_seconds)
     again = fn(1, {0: tau})
-    assert len(pc.pass_seconds) == passes
     assert all(torch.equal(first[i], again[i]) for i in first)
     other = fn(1, {0: tau + 1})
-    assert len(pc.pass_seconds) == passes + 1
+    assert len(pc.pass_seconds) == passes
     assert any(not torch.equal(first[i], other[i]) for i in first)
+    assert pc.replay_matches(tau + 1)
+    assert len(pc.pass_seconds) == passes + 1
 
 
 def _advice(pc) -> torch.Tensor:
